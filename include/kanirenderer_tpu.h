@@ -1,4 +1,4 @@
-/* kanirenderer_tpu C ABI — the embeddable surface of the TPU renderer.
+/* kanirenderer_tpu C ABI — the embeddable surface of the renderer.
  *
  * Mirrors the reference's cbindgen-generated header
  * (kanirenderer_viewer.h): link libkani_native.so and call

@@ -2,7 +2,7 @@
 
 Positional arguments mirror the reference binary exactly:
   kanirenderer <file.obj> <opengl|default> [windowed|fullscreen] [hdr:true]
-plus optional flags for the headless TPU runtime (resolution, frame count,
+plus optional flags for the headless runtime (resolution, frame count,
 output sink, render mode).
 """
 
@@ -12,10 +12,11 @@ import argparse
 import sys
 
 from kanirenderer_tpu import api
+from kanirenderer_tpu.backend import enable_compile_cache
 from kanirenderer_tpu.core.types import RenderMode
 
 CONTROLS = """\
-kanirenderer-tpu — TPU-native mesh previewer
+kanirenderer — JAX mesh previewer
   camera: WASD/arrows move, Space/LShift up/down, RMB-drag look, wheel zoom
   movable light: IJKL move, U/O up/down, =/- range, [/] color
   sun: R/T/Y rotate, 2/3 distance; Tab: render mode; 1: debug texture
@@ -45,8 +46,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sink", default="png",
                     choices=["png", "gif", "window", "null"])
     ap.add_argument("--out", default=None, help="output path for png/gif")
-    ap.add_argument("--backend", default=None, choices=["xla", "pallas"],
-                    help="raster backend override")
+    ap.add_argument("--backend", default=None, choices=["tile", "xla"],
+                    help="raster backend override (default: tile on a "
+                         "GPU, xla on the CPU)")
     ap.add_argument("--point-lights", type=int, default=1, metavar="N",
                     help="spawn N random point lights (the reference's "
                          "disabled light spawner, src/lib.rs:453-512; "
@@ -54,12 +56,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a jax.profiler trace of the run to DIR")
     ap.add_argument("--render-scale", type=int, default=1, metavar="S",
-                    help="performance mode: render at 1/S resolution "
-                         "(one v5e: 1080p lit+shadow 26.6 FPS, S=2 58.4)")
+                    help="performance mode: render at 1/S resolution")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
     use_hdr = str(args.hdr).lower() in ("hdr:true", "true", "1")
+    enable_compile_cache()
     if not args.quiet:
         print(CONTROLS)
     api.run(args.file_path, args.file_type, args.fullscreen_mode, use_hdr,

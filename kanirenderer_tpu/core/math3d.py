@@ -126,7 +126,9 @@ def rotate_direction_zyx(direction: Array, deg_x: Array, deg_y: Array,
     rx = rotation_x(jnp.deg2rad(jnp.asarray(deg_x, jnp.float32)))
     ry = rotation_y(jnp.deg2rad(jnp.asarray(deg_y, jnp.float32)))
     rz = rotation_z(jnp.deg2rad(jnp.asarray(deg_z, jnp.float32)))
-    return (rz @ ry @ rx) @ jnp.asarray(direction, jnp.float32)
+    hi = jax.lax.Precision.HIGHEST
+    rot = jnp.matmul(jnp.matmul(rz, ry, precision=hi), rx, precision=hi)
+    return jnp.matmul(rot, jnp.asarray(direction, jnp.float32), precision=hi)
 
 
 def quat_to_mat3(q: Array) -> Array:
@@ -194,12 +196,13 @@ def directional_light_view_projection(light_direction: Array, distance: Array,
 def transform_points_h(m: Array, pts: Array) -> Array:
     """(4,4) @ [p, 1] for (..., 3) points -> (..., 4) homogeneous output.
 
-    Full-f32 matmul precision: TPU backends otherwise default small f32
-    matmuls to bf16 passes, which visibly degrades clip positions/depth."""
+    Full-f32 matmul precision: a backend may otherwise run f32 matmuls at
+    reduced precision (TF32 on a GPU), which visibly degrades clip
+    positions/depth."""
     out = jnp.matmul(pts, m[:, :3].T, precision=jax.lax.Precision.HIGHEST)
     return out + m[:, 3]
 
 
 def transform_vectors(m3: Array, vecs: Array) -> Array:
-    """(3,3) matrix applied to (..., 3) vectors."""
-    return vecs @ m3.T
+    """(3,3) matrix applied to (..., 3) vectors (full f32 precision)."""
+    return jnp.matmul(vecs, m3.T, precision=jax.lax.Precision.HIGHEST)

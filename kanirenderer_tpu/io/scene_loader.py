@@ -1,7 +1,7 @@
 """Scene building: OBJ/MTL + textures → packed device Scene.
 
 Host-side (numpy) equivalent of the reference's ``load_model``
-(reference src/resources.rs:63-294) redesigned for the TPU data layout:
+(reference src/resources.rs:63-294) redesigned for flat device arrays:
 
 * per-vertex tangent/bitangent accumulated per triangle from UV deltas and
   averaged by incident-triangle count (reference src/resources.rs:204-245);
@@ -10,7 +10,7 @@ Host-side (numpy) equivalent of the reference's ``load_model``
   (src/resources.rs:105-178) — packed into two atlases;
 * instances spawned at ``rand(i..=10i)`` diagonal positions with a zero
   quaternion (src/resources.rs:269-280);
-* NEW (TPU): triangles are Morton-ordered by centroid so the fixed-size
+* NEW: triangles are Morton-ordered by centroid so the fixed-size
   binning chunks (types.CHUNK_SIZE) are spatially compact, and all arrays
   are padded to static shapes.
 
@@ -221,8 +221,8 @@ class SceneBuilder:
 
         # Block-window texel tables (see core/types.Scene): per material,
         # the normal map is resampled to the diffuse resolution, then the
-        # textures are tiled into block rows for the TPU row-gather fast
-        # path (ops/sampling.py).  Diffuse is sRGB u8 source → linear
+        # textures are tiled into block rows for one-row-per-pixel
+        # sampling (ops/sampling.py).  Diffuse is sRGB u8 source → linear
         # (the Rgba8UnormSrgb view, reference src/texture.rs:128) →
         # sqrt-encoded u8 (round(sqrt(linear)·255); decode is one square
         # in the sampler — ~0.4% relative texel error, same as bf16 at

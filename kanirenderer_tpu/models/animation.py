@@ -2,8 +2,8 @@
 
 The reference ships a test-only animation path that random-walks instance
 positions every frame across 8 worker threads and re-uploads the instance
-buffers (reference src/lib.rs:1394-1689, src/model.rs:86-92).  The TPU
-equivalent is a pure jittable update of the per-object transforms — no
+buffers (reference src/lib.rs:1394-1689, src/model.rs:86-92).  The
+equivalent here is a pure jittable update of the per-object transforms — no
 threads, no buffer re-uploads, just a new (O, 4, 4) array consumed by the
 next render_frame.
 """

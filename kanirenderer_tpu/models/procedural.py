@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from kanirenderer_tpu.core.types import Scene
+from kanirenderer_tpu.core.types import CameraState, Scene
 from kanirenderer_tpu.io import obj as obj_mod
 from kanirenderer_tpu.io.image import default_normal_image
 from kanirenderer_tpu.io.scene_loader import MaterialTextures, SceneBuilder
@@ -123,10 +123,8 @@ def layered_scene(layers: int = 4, target_tris: int = 260_000,
     screen-filling walls stacked in depth in front of the default camera
     (position (0,5,10) looking −Z, core/types.default_camera), each
     subdivided to ~target_tris/layers triangles.  Everything behind the
-    front wall is fully occluded — the positive control for the
-    content-adaptive occlusion gate (ops/occ_replay.choose_occ_scope):
-    the main perspective grid skips ~half its runs here where the open
-    courtyard scene skips <1% (tests/artifacts/occ_stats_main_r4.json)."""
+    front wall is fully occluded: depth complexity ``layers`` on every
+    pixel, where the open courtyard scene has about one."""
     rng = np.random.RandomState(seed)
     b = SceneBuilder()
     for i in range(layers):
@@ -180,6 +178,14 @@ def layered_scene(layers: int = 4, target_tris: int = 260_000,
     b._num_objects = 1
     b._vert_base = len(mesh.positions)
     return b.build()
+
+
+def bench_camera() -> CameraState:
+    """The benchmark pose in ``sponza_standin_scene``: inside the courtyard
+    at one end, looking down its length."""
+    return CameraState(position=np.array([-1000.0, 180.0, 0.0], np.float32),
+                       yaw=np.float32(0.0),
+                       pitch=np.float32(np.deg2rad(-5.0)))
 
 
 def sponza_standin_scene(target_tris: int = 262_000, num_materials: int = 25,

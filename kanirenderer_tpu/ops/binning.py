@@ -1,211 +1,108 @@
-"""Per-frame tile binning for the Pallas rasterizer.
+"""Per-frame tile binning for the tile rasterizer (ops/raster_tiles.py).
 
-The TPU analog of a GPU's tile binner: screen space is divided into
-(tile_h × tile_w) tiles, and each tile gets the list of *triangle chunks*
-(CHUNK_SIZE consecutive Morton-ordered triangles, see io/scene_loader.py)
-whose screen bounding boxes overlap it.  Because triangles are Morton-sorted
-at load, chunks are spatially compact, so chunk-granularity binning costs
-~T/CHUNK work instead of O(T · tiles).
+Screen space is divided into (tile_h × tile_w) tiles, and each tile gets
+the list of *triangle chunks* (CHUNK_SIZE consecutive Morton-ordered
+triangles, see io/scene_loader.py) whose triangles can cover one of its
+pixels.  Because triangles are Morton-sorted at load, chunks are spatially
+compact, so chunk-granularity binning costs ~T/CHUNK work instead of
+O(T · tiles).
 
-Scatter-free, sort-light pipeline (all dense XLA):
- 1. chunk screen bbox  = min/max over each chunk's triangle bboxes;
- 2. each chunk expands to ≤ ``max_tiles_per_chunk`` (tile, chunk) key slots
-    (key = tile_id * C + chunk_id); chunks spanning more tiles go to a
-    small "global" list applied to every tile;
- 3. one sort of C·S int32 keys (tiny vs the frame) groups keys by tile;
- 4. per-tile ranges via searchsorted; per-tile lists gathered to a dense
-    (tiles_y, tiles_x, L) table with the global list appended so every
-    tile's list is a contiguous valid prefix + count.
+Scatter-free pipeline (all dense XLA):
+ 1. chunk screen bbox = min/max over each chunk's triangle bboxes, plus
+    one bbox per SUBBATCH-triangle subbatch;
+ 2. each chunk expands to ≤ ``max_tiles_per_chunk`` (tile, chunk) slots;
+    chunks spanning more tiles go to a small "global" list that is
+    enumerated densely against every tile;
+ 3. every (tile, chunk) pair carries a subbatch overlap mask (one bit per
+    subbatch whose bbox overlaps the tile); pairs with an empty mask are
+    dropped — no triangle of theirs can cover a pixel of the tile;
+ 4. one key+payload sort by ``tile · C + chunk`` groups the pairs by tile
+    in ascending chunk order, and per-tile ranges come from
+    ``searchsorted``.
 
-No scatter ops and no O(T·tiles) masks anywhere — this is the part of the
-design that keeps 1080p × 262K-triangle frames inside the 16 ms budget.
+The ascending order is part of the contract: the kernel walks a tile's
+chunks, subbatches and triangles in increasing triangle id and keeps the
+first nearest hit, which is the brute-force oracle's tie rule.
 """
 
 from __future__ import annotations
 
-import os as _os
 from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
-from kanirenderer_tpu.core.types import (CHUNK_SIZE, MASK_BITS, RUN_CHUNKS,
-                                         SUBBATCH, SUBS_PER_CHUNK)
+from kanirenderer_tpu.core.types import (CHUNK_SIZE, SUBBATCH,
+                                         SUBS_PER_CHUNK)
 
 Array = jnp.ndarray
 
-_SENTINEL = jnp.int32(2**31 - 1)
-# Drop packed-list entries with empty subbatch masks (exact; saves the
-# kernel a DMA+sync per dropped entry).  0 disables for measurement.
-_MASK_PRUNE = _os.environ.get("KANI_MASK_PRUNE", "1") != "0"
-# Pack the (tile, chunk) key and subbatch mask into one int32 for a
-# single-array sort (halves the sort's data movement).  0 disables.
-_PACK_SORT = _os.environ.get("KANI_PACK_SORT", "1") != "0"
+_SENTINEL = 2**31 - 1
 
 
 class StreamBins(NamedTuple):
-    """Flat run-stream binning output (KANI_BIN=stream, the default).
+    """Flat sorted (tile, chunk) stream.
 
-    The packed-block layout (``TileBins.packed``) regroups the sorted
-    (tile, chunk) stream into dense per-tile blocks with three (510, 768)
-    element gathers — measured ~10 ms at 1080p/257K tris (TPU gathers cost
-    ~9 ns/pick however they are phrased; jobs 347-356).  The stream layout
-    skips regrouping entirely: the kernel windows into the SORTED global
-    run stream with per-tile (row, lane-offset, count) scalars delivered
-    by Pallas scalar prefetch, so the host side is just the one key sort
-    (+1 compaction sort) it already paid.
-    """
+    Tile ``t`` owns stream entries ``[header[0, t], header[0, t] +
+    header[1, t])``; each entry is ``(chunk id, subbatch mask)`` with bit
+    ``s`` of the mask set iff subbatch ``s`` of the chunk overlaps the
+    tile."""
 
-    header: Array      # (3, num_tiles) i32: [stream row, lane offset,
-    #                    run count] per tile — scalar-prefetched to SMEM
-    stream: Array      # (NR, 3, 128) i32 — [:, 0] run entries
-    #                    ``(tile·cpad + cid0)·32 + cf·16 + len`` with cpad
-    #                    = ``stream_cpad_for(C)`` and cf = 1 iff every
-    #                    triangle of the run's chunks is clip-free (the
-    #                    kernels' per-run fast-coverage branch; always 0
-    #                    when the packed sort key cannot spare the bit —
-    #                    see bin_stream), [:, 1] per-run
-    #                    MASK_BITS-per-chunk subbatch masks; [:, 2] the
-    #                    occlusion payload ``qz·256 + strip_y0·16 +
-    #                    strip_y1`` (see bin_stream; zeros when occlusion
-    #                    inputs are absent); each tile's runs are a
-    #                    contiguous lane range — sorted FRONT-TO-BACK by
-    #                    the runs' conservative depth bound when occlusion
-    #                    is on, by chunk id otherwise
-    overflow: Array    # () i32 — run-capacity + global-cap drops
+    header: Array      # (2, num_tiles) i32: [first entry, entry count]
+    stream: Array      # (N, 2) i32: [chunk id, subbatch mask], sorted
+    #                    by (tile, chunk); entries past the last tile's
+    #                    range are padding
+    overflow: Array    # () i32 — chunks dropped by max_global_chunks
 
 
-class TileBins(NamedTuple):
-    tile_lists: Array   # (tiles_y, tiles_x, L) i32 chunk ids, -1 padded
-    tile_counts: Array  # (tiles_y, tiles_x) i32 valid prefix length
-    packed: Array       # (num_tiles, 16, 128) i32 — flat slot 0 = RUN
-    #                     count, slots 1.. = run entries ``cid0·16 + len``
-    #                     (a run = ``len`` ≤ RUN_CHUNKS chunks with
-    #                     consecutive ids, so the Pallas kernel fetches a
-    #                     whole run with ONE DMA instead of one DMA+sync
-    #                     per chunk — Morton-sorted chunk ids make
-    #                     consecutive list entries the common case); flat
-    #                     slots 1024.. = per-run SUBBATCH MASKS (bit
-    #                     k·SUBS_PER_CHUNK+s = subbatch s of run chunk k
-    #                     overlaps this tile), so the kernels skip
-    #                     subbatches with a pure scalar branch — no
-    #                     in-kernel vector reduce + scalar sync.
-    num_chunks: int     # C (static)
-    overflow: Array     # () i32 — chunks DROPPED by the per-tile /global
-    #                     caps this frame (0 = complete geometry; callers
-    #                     and tests can assert/log on it)
+def max_key_tiles(num_chunks: int) -> int:
+    """Largest tile count whose ``tile · C + chunk`` key fits an int32
+    below the sort sentinel."""
+    return (_SENTINEL - 1) // max(num_chunks, 1)
 
 
-def _pack_runs(lists: Array, masks: Array, num_tiles: int) -> Array:
-    """(num_tiles, L) sorted chunk-id lists (−1 padded) + per-position
-    subbatch masks → packed run lists with per-run masks.
-
-    Runs of ≤ RUN_CHUNKS *consecutive* chunk ids collapse to one entry
-    ``cid0·16 + len``; the run's mask ORs the member chunks' MASK_BITS-wide
-    fields (subbatch bits + optional clip-free top bit) shifted by
-    MASK_BITS per chunk.  All dense vector work: break detection, a
-    cummax-based position-within-run, run-length via shifted stop flags,
-    and one row-wise key+payload sort to compact run starts to a dense
-    prefix."""
-    R = RUN_CHUNKS
-    NSB = MASK_BITS
-    L = lists.shape[1]
-    valid = lists >= 0
-    idx = jnp.arange(L, dtype=jnp.int32)[None, :]
-    prev = jnp.concatenate(
-        [jnp.full((num_tiles, 1), -2, jnp.int32), lists[:, :-1]], axis=1)
-    brk = valid & (lists != prev + 1)
-    first = jax.lax.cummax(jnp.where(brk, idx, -1), axis=1)
-    pos = idx - first                       # position within maximal run
-    newrun = valid & (brk | (pos % R == 0))
-    stop = newrun | ~valid
-    # run length = distance to the next stop flag, ≤ R by construction;
-    # run mask = OR of member masks shifted into 4-bit chunk fields
-    ln = jnp.ones_like(lists)
-    rmask = jnp.where(valid, masks, 0)
-    alive = jnp.ones_like(valid)
-    for k in range(1, R):
-        nxt = jnp.concatenate(
-            [stop[:, k:], jnp.ones((num_tiles, k), bool)], axis=1)
-        alive = alive & ~nxt
-        ln = ln + alive.astype(jnp.int32)
-        mk = jnp.concatenate(
-            [masks[:, k:], jnp.zeros((num_tiles, k), masks.dtype)], axis=1)
-        rmask = rmask | jnp.where(alive, mk << (NSB * k), 0)
-    entries = jnp.where(newrun, lists * 16 + ln, _SENTINEL)
-    entries, rmask = jax.lax.sort((entries, rmask), dimension=1, num_keys=1)
-    entries = jnp.where(entries == _SENTINEL, -1, entries)
-    run_count = newrun.sum(axis=1).astype(jnp.int32)
-
-    flat = jnp.concatenate([run_count[:, None], entries], axis=1)
-    half = 8 * 128
-    if flat.shape[1] > half or L > half:
-        raise ValueError(f"tile list capacity {flat.shape[1]} exceeds {half}")
-    flat = jnp.pad(flat, ((0, 0), (0, half - flat.shape[1])),
-                   constant_values=-1)
-    mflat = jnp.pad(rmask, ((0, 0), (0, half - L)))
-    return jnp.concatenate([flat, mflat], axis=1).reshape(num_tiles, 16, 128)
-
-
-class _Expansion(NamedTuple):
-    """Shared (tile, chunk) expansion for both binning layouts."""
-
-    C: int
-    tile_id: Array      # (C, S) i32 tile of each expansion slot
-    chunk_id: Array     # (C, 1) i32
-    valid_slot: Array   # (C, S) bool
-    mexp: Array         # (C, S) i32 subbatch bits
-    glob: Array         # (C,) bool — span > S chunks
-    cf_chunk: Array | None  # (C,) i32 0/1 — every triangle clip-free
-    subbatch_bits: object  # callable for the global-chunk masks
-    sx0: Array
-    sy0: Array
-    sx1: Array
-    sy1: Array
-    cy0: Array = None   # (C,) chunk y bbox (occlusion strip ranges)
-    cy1: Array = None
-    qz: Array = None    # (C,) i32 — 22-bit conservative depth bound
-    #                     (None when no zmin input / occlusion off)
-
-
-def _expand(bbox: Array, tiles_x: int, tiles_y: int, tile_w: int,
-            tile_h: int, S: int, clipfree: Array | None,
-            zmin: Array | None = None) -> _Expansion:
+@partial(jax.jit, static_argnames=("tiles_x", "tiles_y", "tile_w", "tile_h",
+                                   "max_tiles_per_chunk",
+                                   "max_global_chunks"))
+def bin_stream(bbox: Array, tiles_x: int, tiles_y: int, tile_w: int,
+               tile_h: int, max_tiles_per_chunk: int = 16,
+               max_global_chunks: int = 256) -> StreamBins:
+    """bbox: (T, 4) f32 per-triangle pixel bounds from triangle_setup
+    (invalid triangles carry empty boxes); T a multiple of CHUNK_SIZE."""
+    S = max_tiles_per_chunk
+    G = max_global_chunks
+    num_tiles = tiles_x * tiles_y
     T = bbox.shape[0]
+    if T % CHUNK_SIZE:
+        raise ValueError(f"{T} triangles is not a multiple of {CHUNK_SIZE}")
     C = T // CHUNK_SIZE
+    if num_tiles > max_key_tiles(C):
+        raise ValueError(f"{num_tiles} tiles x {C} chunks overflows the "
+                         "int32 binning key")
 
-    # One relayout to planar (4, T) first: reducing the (C, CHUNK, 4)
-    # row-major view costs ~10 ms at 257K triangles (a 4-wide minor dim
-    # leaves ~97% of each (8, 128) vector tile empty); planar reduces are
-    # ~free.
+    # Planar (4, C, CHUNK) view: chunk and subbatch bounds are reductions
+    # over the minor axis.
     bt = bbox.T.reshape(4, C, CHUNK_SIZE)
     cx0 = bt[0].min(axis=-1)
     cy0 = bt[1].min(axis=-1)
     cx1 = bt[2].max(axis=-1)
     cy1 = bt[3].max(axis=-1)
     nonempty = (cx1 > cx0) & (cy1 > cy0)
-
-    # Per-subbatch bboxes for the kernel skip masks (one bit per subbatch
-    # per (tile, chunk) — computed here so the kernel's skip is a pure
-    # scalar branch instead of a vector reduce + scalar-core sync).
     sb = bt.reshape(4, C, SUBS_PER_CHUNK, SUBBATCH)
-    sx0 = sb[0].min(axis=-1)                 # (C, NSB)
+    sx0 = sb[0].min(axis=-1)                 # (C, SUBS_PER_CHUNK)
     sy0 = sb[1].min(axis=-1)
     sx1 = sb[2].max(axis=-1)
     sy1 = sb[3].max(axis=-1)
+    weights = jnp.asarray([1 << s for s in range(SUBS_PER_CHUNK)], jnp.int32)
 
-    def subbatch_bits(txi, tyi, x0, y0, x1, y1):
-        """Overlap bits of subbatch bboxes vs tile rects.
-
-        txi/tyi: integer tile coords, shape B; x0..y1: (…, NSB) bboxes
-        broadcastable against B + (1,).  Returns (…,) i32 bit-packed."""
-        tx0p = (txi * tile_w).astype(jnp.float32)[..., None]
-        ty0p = (tyi * tile_h).astype(jnp.float32)[..., None]
-        hit = ((x0 < tx0p + tile_w) & (x1 > tx0p)
-               & (y0 < ty0p + tile_h) & (y1 > ty0p))
-        weights = jnp.asarray([1 << s for s in range(SUBS_PER_CHUNK)],
-                              jnp.int32)
+    def subbatch_bits(txi, tyi, gc):
+        """Overlap bits of chunk ``gc``'s subbatch bboxes vs the tile at
+        integer coords (txi, tyi); all three broadcast together."""
+        tx0 = (txi * tile_w).astype(jnp.float32)[..., None]
+        ty0 = (tyi * tile_h).astype(jnp.float32)[..., None]
+        hit = ((sx0[gc] < tx0 + tile_w) & (sx1[gc] > tx0)
+               & (sy0[gc] < ty0 + tile_h) & (sy1[gc] > ty0))
         return (hit.astype(jnp.int32) * weights).sum(axis=-1)
 
     tx0 = jnp.clip((cx0 // tile_w).astype(jnp.int32), 0, tiles_x - 1)
@@ -213,425 +110,40 @@ def _expand(bbox: Array, tiles_x: int, tiles_y: int, tile_w: int,
     tx1 = jnp.clip(((cx1 - 1.0) // tile_w).astype(jnp.int32), 0, tiles_x - 1)
     ty1 = jnp.clip(((cy1 - 1.0) // tile_h).astype(jnp.int32), 0, tiles_y - 1)
     span_w = tx1 - tx0 + 1
-    span_h = ty1 - ty0 + 1
-    span = span_w * span_h
-    small = nonempty & (span <= S)
+    span = span_w * (ty1 - ty0 + 1)
     glob = nonempty & (span > S)
 
-    # --- expansion: (C, S) slots ---
-    slots = jnp.arange(S, dtype=jnp.int32)[None, :]     # (1, S)
-    dx = slots % span_w[:, None]
-    dy = slots // span_w[:, None]
-    txi = tx0[:, None] + dx
-    tyi = ty0[:, None] + dy
-    tile_id = tyi * tiles_x + txi
-    chunk_id = jnp.arange(C, dtype=jnp.int32)[:, None]
-    valid_slot = small[:, None] & (slots < span[:, None])
-    # subbatch masks ride the sort as a payload
-    mexp = subbatch_bits(txi, tyi, sx0[:, None], sy0[:, None],
-                         sx1[:, None], sy1[:, None])
-    if clipfree is not None:
-        # chunk-level AND of the per-triangle flags (invalid triangles
-        # count as clip-free — ops/vertex.py) → per-run fast-path bit
-        cf_chunk = clipfree.reshape(C, CHUNK_SIZE).all(axis=-1) \
-            .astype(jnp.int32)
-    else:
-        cf_chunk = None
-    mexp = jnp.where(valid_slot, mexp, 0)
-    if zmin is not None:
-        # Per-chunk conservative depth bound, quantized so smaller values
-        # mean farther (qz = 0 ⇒ zbound = 1).  Invalid triangles carry
-        # zmin = +inf (ops/vertex.py) and drop out of the min; an
-        # all-invalid chunk maps to qz = 0 (zbound 1.0, effectively
-        # skippable — such chunks are mask-pruned anyway).
-        zc = zmin.reshape(C, CHUNK_SIZE).min(axis=-1)
-        qz = jnp.clip(jnp.ceil((1.0 - zc) * float(2 ** OCC_QBITS)),
-                      0, 2 ** OCC_QBITS).astype(jnp.int32)
-    else:
-        qz = None
-    return _Expansion(C=C, tile_id=tile_id, chunk_id=chunk_id,
-                      valid_slot=valid_slot, mexp=mexp, glob=glob,
-                      cf_chunk=cf_chunk, subbatch_bits=subbatch_bits,
-                      sx0=sx0, sy0=sy0, sx1=sx1, sy1=sy1,
-                      cy0=cy0, cy1=cy1, qz=qz)
+    # Local chunks: (C, S) expansion slots.
+    slots = jnp.arange(S, dtype=jnp.int32)[None, :]
+    txi = tx0[:, None] + slots % span_w[:, None]
+    tyi = ty0[:, None] + slots // span_w[:, None]
+    cids = jnp.arange(C, dtype=jnp.int32)
+    lmask = subbatch_bits(txi, tyi, cids[:, None])
+    lvalid = (nonempty & (span <= S))[:, None] & (slots < span[:, None]) \
+        & (lmask != 0)
+    lkey = jnp.where(lvalid, (tyi * tiles_x + txi) * C + cids[:, None],
+                     _SENTINEL)
 
-
-@partial(jax.jit, static_argnames=("tiles_x", "tiles_y", "tile_w", "tile_h",
-                                   "max_tiles_per_chunk", "max_chunks_per_tile",
-                                   "max_global_chunks"))
-def bin_chunks(bbox: Array, tiles_x: int, tiles_y: int, tile_w: int,
-               tile_h: int, max_tiles_per_chunk: int = 16,
-               max_chunks_per_tile: int = 256,
-               max_global_chunks: int = 256,
-               clipfree: Array | None = None,
-               zmin: Array | None = None) -> TileBins:
-    """bbox: (T, 4) f32 per-triangle pixel bounds from triangle_setup
-    (invalid triangles carry empty boxes).
-
-    ``clipfree``/``zmin`` are accepted for signature parity with
-    ``bin_stream`` but unused: the packed-block layout (an A/B fallback)
-    has no spare entry bits, so its kernels always run the full coverage
-    test and never occlusion-skip (correct, conservative)."""
-    S = max_tiles_per_chunk
-    K = max_chunks_per_tile
-    G = max_global_chunks
-    num_tiles = tiles_x * tiles_y
-
-    ex = _expand(bbox, tiles_x, tiles_y, tile_w, tile_h, S, None)
-    C = ex.C
-    valid_slot, mexp, glob = ex.valid_slot, ex.mexp, ex.glob
-    subbatch_bits = ex.subbatch_bits
-    sx0, sy0, sx1, sy1 = ex.sx0, ex.sy0, ex.sx1, ex.sy1
-    key = jnp.where(valid_slot, ex.tile_id * C + ex.chunk_id, _SENTINEL)
-
-    # The (tile, chunk) key needs ⌈log2(num_tiles·C)⌉ bits and the
-    # mask field MASK_BITS more; when they fit one int32 together, pack
-    # them and sort a SINGLE array — the bitonic sort's data movement
-    # halves vs a key+payload co-sort.
-    nsb = MASK_BITS
+    # Global chunks: the first G, enumerated against every tile.
+    gsorted = jnp.sort(jnp.where(glob, cids, _SENTINEL))[:G]
+    gc = jnp.minimum(gsorted, C - 1)
     tids = jnp.arange(num_tiles, dtype=jnp.int32)
-    if _PACK_SORT and nsb <= 8 and num_tiles * C <= (2**31 - 2) >> nsb:
-        packed_key = jnp.where(valid_slot, key * (1 << nsb) + mexp,
-                               _SENTINEL)
-        skey_p = jnp.sort(packed_key.reshape(-1))       # (C*S,)
-        # The mask bits are LOW bits, so packed order == key order: range
-        # searches use scaled boundaries, and the dense list build below
-        # gathers the packed array ONCE (chunk id + mask unpack after the
-        # gather) instead of gathering two unpacked copies.
-        starts = jnp.searchsorted(skey_p, tids * (C << nsb))
-        ends = jnp.searchsorted(skey_p, (tids + 1) * (C << nsb))
-        spacked = skey_p
-    else:
-        skey, smask = jax.lax.sort((key.reshape(-1), mexp.reshape(-1)),
-                                   num_keys=1)          # (C*S,)
-        schunk = jnp.where(skey == _SENTINEL, -1, skey % C)
-        starts = jnp.searchsorted(skey, tids * C)
-        ends = jnp.searchsorted(skey, (tids + 1) * C)
-        spacked = None
-    counts = jnp.minimum(ends - starts, K).astype(jnp.int32)
-    tile_dropped = jnp.maximum(ends - starts - K, 0).sum()
+    gmask = subbatch_bits((tids % tiles_x)[:, None],
+                          (tids // tiles_x)[:, None], gc[None, :])
+    gvalid = (gsorted != _SENTINEL)[None, :] & (gmask != 0)
+    gkey = jnp.where(gvalid, tids[:, None] * C + gc[None, :], _SENTINEL)
 
-    # --- global chunk list (spans > S tiles) ---
-    gkey = jnp.where(glob, jnp.arange(C, dtype=jnp.int32), _SENTINEL)
-    gsorted = jnp.sort(gkey)[:G]
-    gcount = jnp.minimum(glob.sum(), G).astype(jnp.int32)
-    gids = jnp.where(gsorted == _SENTINEL, -1, gsorted)
-    glob_dropped = jnp.maximum(glob.sum() - G, 0)
-
-    # --- dense per-tile lists with the global list appended ---
-    L = K + G
-    slot_l = jnp.arange(L, dtype=jnp.int32)[None, :]    # (1, L)
-    in_local = slot_l < counts[:, None]
-    local_idx = jnp.clip(starts[:, None] + slot_l, 0, C * S - 1)
-    if spacked is not None:
-        pk = spacked[local_idx]
-        pad = pk == _SENTINEL
-        local_val = jnp.where(pad, -1, (pk >> nsb) % C)
-        local_msk = jnp.where(pad, 0, pk & ((1 << nsb) - 1))
-    else:
-        local_val = schunk[local_idx]
-        local_msk = smask[local_idx]
-    gslot = jnp.clip(slot_l - counts[:, None], 0, G - 1)
-    gval = gids[gslot]
-    in_glob = (slot_l >= counts[:, None]) & (slot_l < counts[:, None] + gcount)
-    lists = jnp.where(in_local, local_val, jnp.where(in_glob, gval, -1))
-    total = counts + gcount
-
-    # Global chunks skip the expansion, so compute their masks densely:
-    # (num_tiles, G, NSB) tests against each tile rect (G is small).
-    gc = jnp.clip(gids, 0, C - 1)
-    gmask = subbatch_bits((tids % tiles_x)[:, None], (tids // tiles_x)[:, None],
-                          sx0[gc][None], sy0[gc][None],
-                          sx1[gc][None], sy1[gc][None])   # (num_tiles, G)
-    gmask_l = jnp.take_along_axis(gmask, gslot, axis=1)
-    masks = jnp.where(in_local, local_msk,
-                      jnp.where(in_glob, gmask_l, 0))
-
-    # Drop entries whose subbatch mask is empty: no subbatch bbox of the
-    # chunk overlaps the tile ⇒ no triangle can cover a tile pixel, so
-    # the entry is exactly removable — and every removed entry saves the
-    # kernel a run DMA + scalar-core sync.  This prunes (a) global
-    # chunks on the many tiles they don't actually touch (they are
-    # appended to EVERY tile's list) and (b) local chunks whose tight
-    # subbatch boxes miss the tile even though the chunk bbox overlaps.
-    # _pack_runs' row-wise sort compacts the surviving entries.
-    # (Applied to the PACKED kernel lists only; tile_lists/tile_counts
-    # keep the bbox-overlap semantics their consumers/tests expect.
-    # KANI_MASK_PRUNE=0 disables for A/B measurement.)
-    if _MASK_PRUNE:
-        keep = (masks & ((1 << SUBS_PER_CHUNK) - 1)) != 0
-        plists = jnp.where(keep, lists, -1)
-        pmasks = jnp.where(keep, masks, 0)
-    else:
-        plists, pmasks = lists, masks
-
-    # Packed layout for the Pallas kernel: each tile's rows padded into a
-    # (16, 128) int32 block (DMA slices must be tile-aligned on TPU).
-    # Flat slot 0 = run count, slots 1.. = cid0·16+len run entries,
-    # slots 1024.. = per-run subbatch masks.
-    packed = _pack_runs(plists, pmasks, num_tiles)
-    return TileBins(
-        tile_lists=lists.reshape(tiles_y, tiles_x, L),
-        tile_counts=total.reshape(tiles_y, tiles_x),
-        packed=packed,
-        num_chunks=C,
-        overflow=(tile_dropped + glob_dropped).astype(jnp.int32),
-    )
-
-
-def stream_win_rows(K: int, G: int) -> int:
-    """SMEM window rows covering any (lane offset < 128) + (count ≤ K+G)."""
-    return (K + G + 127 + 127) // 128
-
-
-# ---- sub-tile occlusion culling (the round-4 semantic change) ----
-#
-# Tile-granular early-z failed on this scene (docs/PERFORMANCE.md "early-z
-# RETRY"): one sky pixel per 32×128 tile pins the tile z-max at the far
-# plane and only 1.4-2.8% of runs skipped.  The sub-tile scheme tracks
-# z-max per 4-row STRIP instead (8 scalars per 32-row tile, refreshed by
-# an in-kernel reduce every few runs), orders each tile's runs
-# front-to-back by a conservative per-run depth bound, and skips a run
-# when its bound exceeds the max strip z over the rows its bbox overlaps
-# — exactly output-preserving: a skipped run cannot win any pixel.
-#
-# The per-run payload packs into stream lane 2 as ``qz·256 + y0·16 + y1``:
-# qz = clamp(ceil((1 − zmin)·2²²), 0, 2²²) so zbound = 1 − qz·2⁻²² ≤ zmin
-# (qz = 2²² ⇒ zbound = 0, the never-skip value externals use), and y0/y1
-# are the strip indices (4 bits each) of the run's y extent in the tile.
-
-OCC_QBITS = 22
-OCC_SORT_SHIFT = 9   # front-to-back sort uses qz >> 9 (13-bit rank)
-
-
-_OCC_STRIP_ENV = int(_os.environ.get("KANI_OCC_STRIP", "0"))
-
-
-def occ_strip_rows(tile_h: int) -> int:
-    """Rows per occlusion strip: 4 for tile_h ≤ 64, scaled so the strip
-    count fits the 4-bit payload field beyond that.  KANI_OCC_STRIP
-    overrides for sweeps (must divide tile_h; stream_has_occ guards the
-    16-strip payload limit)."""
-    if _OCC_STRIP_ENV:
-        return _OCC_STRIP_ENV
-    return 4 * (-(-tile_h // 64))
-
-
-def occ_nstrips(tile_h: int) -> int:
-    return -(-tile_h // occ_strip_rows(tile_h))
-
-
-def stream_has_occ(num_tiles: int, tile_h: int) -> bool:
-    """True iff the stream packing supports occlusion ordering at this
-    (grid, tile_h) — must match bin_stream so the kernels only compile
-    the skip branch where the binner z-orders."""
-    return (tile_h % occ_strip_rows(tile_h) == 0
-            and occ_nstrips(tile_h) <= 16
-            and num_tiles * 8192 < 2**31 - 2)
-
-
-def stream_cpad_for(C: int) -> int:
-    """Static pow2 > C for the stream entry encoding: runs can never
-    bridge a tile boundary (the key step across tiles is ≥ 2) and the
-    kernel's cid0 decode is a pow2 modulo."""
-    return 1 << max(C.bit_length(), 1)
-
-
-def stream_has_cf(num_tiles: int, C: int) -> bool:
-    """True iff the stream packing reserves the clip-free run bit at this
-    (grid, chunk-count) size — must match bin_stream's ``cf_ok`` so the
-    kernels only compile the fast coverage body where it can fire."""
-    return num_tiles * stream_cpad_for(C) < (2**31 - 2) >> (MASK_BITS + 1)
-
-
-@partial(jax.jit, static_argnames=("tiles_x", "tiles_y", "tile_w", "tile_h",
-                                   "max_tiles_per_chunk", "max_chunks_per_tile",
-                                   "max_global_chunks"))
-def bin_stream(bbox: Array, tiles_x: int, tiles_y: int, tile_w: int,
-               tile_h: int, max_tiles_per_chunk: int = 16,
-               max_chunks_per_tile: int = 256,
-               max_global_chunks: int = 256,
-               clipfree: Array | None = None,
-               zmin: Array | None = None) -> StreamBins:
-    """Flat run-stream binning (see StreamBins).
-
-    Same inputs/semantics as ``bin_chunks`` but the output stays in the
-    sorted global order — no per-tile regrouping gathers.  Differences:
-    mask pruning is always on (entries no subbatch of which overlaps the
-    tile are exactly removable), and the per-tile capacity cap counts RUN
-    entries against ``max_chunks_per_tile + max_global_chunks`` rather
-    than chunk entries against each cap separately.
-
-    ``zmin``: optional (T,) per-triangle conservative depth lower bound
-    (ops/vertex.TriangleSetup.zmin).  When given (and the grid supports
-    it — ``stream_has_occ``), each tile's runs are ordered FRONT-TO-BACK
-    by the run bound and stream lane 2 carries the occlusion payload the
-    kernels' sub-tile skip consumes; the per-tile capacity cap then drops
-    the FARTHEST runs first."""
-    S = max_tiles_per_chunk
-    K = max_chunks_per_tile
-    G = max_global_chunks
-    R = RUN_CHUNKS
-    nsb = MASK_BITS
-    num_tiles = tiles_x * tiles_y
-
-    occ = zmin is not None and stream_has_occ(num_tiles, tile_h)
-    ex = _expand(bbox, tiles_x, tiles_y, tile_w, tile_h, S, clipfree,
-                 zmin if occ else None)
-    C = ex.C
-    cpad = stream_cpad_for(C)
-    if num_tiles * cpad >= (2**31 - 2) >> max(nsb, 5):
-        raise ValueError("stream binning key overflow: use bin_chunks")
-
-    # The clip-free chunk bit rides the packed sort key one bit above the
-    # mask field when the key can spare it (1080p main camera: 510 tiles ·
-    # cpad 2048 · 2^9 fits int32).  The 2048-tile shadow grid cannot — and
-    # its slope-biased triangles certify only ~2% anyway — so it packs
-    # without the bit and every run takes the kernels' full coverage path.
-    cf_ok = ex.cf_chunk is not None and stream_has_cf(num_tiles, C)
-    kshift = nsb + 1 if cf_ok else nsb
-
-    sub_lo = (1 << SUBS_PER_CHUNK) - 1
-
-    srows = float(occ_strip_rows(tile_h))
-    nstrips = occ_nstrips(tile_h)
-
-    def occ_pay(tyi, y0b, y1b, qzb):
-        """Occlusion payload qz·256 + strip_y0·16 + strip_y1 of chunk
-        y-bounds (y1b exclusive) vs tile rows [tyi·tile_h, +tile_h)."""
-        ty0p = (tyi * tile_h).astype(jnp.float32)
-        s0 = jnp.clip(((y0b - ty0p) // srows).astype(jnp.int32),
-                      0, nstrips - 1)
-        s1 = jnp.clip(((y1b - 1.0 - ty0p) // srows).astype(jnp.int32),
-                      0, nstrips - 1)
-        return qzb * 256 + s0 * 16 + s1
-
-    # Local slots, pruned by subbatch mask (exact: no overlapping subbatch
-    # bbox ⇒ no covered pixel possible).
-    lvalid = ex.valid_slot & ((ex.mexp & sub_lo) != 0)
-    lkey = ex.tile_id * cpad + ex.chunk_id
-    lpay = ex.mexp
-    if cf_ok:
-        lpay = lpay | (ex.cf_chunk[:, None] << nsb)
-    lpacked = jnp.where(lvalid, lkey * (1 << kshift) + lpay, _SENTINEL)
-    if occ:
-        le3 = occ_pay(ex.tile_id // tiles_x, ex.cy0[:, None],
-                      ex.cy1[:, None], ex.qz[:, None])
-
-    # Global chunks (span > S tiles): enumerated densely per tile — the
-    # (num_tiles, G) mask table is computed here either way, and adding
-    # the keys to the one sort replaces the packed path's per-tile append
-    # machinery.
-    tids = jnp.arange(num_tiles, dtype=jnp.int32)
-    gkey_src = jnp.where(ex.glob, jnp.arange(C, dtype=jnp.int32), _SENTINEL)
-    gsorted = jnp.sort(gkey_src)[:G]
-    gids = jnp.where(gsorted == _SENTINEL, -1, gsorted)
-    glob_dropped = jnp.maximum(ex.glob.sum() - G, 0)
-    gc = jnp.clip(gids, 0, C - 1)
-    gmask = ex.subbatch_bits(
-        (tids % tiles_x)[:, None], (tids // tiles_x)[:, None],
-        ex.sx0[gc][None], ex.sy0[gc][None],
-        ex.sx1[gc][None], ex.sy1[gc][None])          # (num_tiles, G)
-    gvalid = (gids >= 0)[None, :] & ((gmask & sub_lo) != 0)
-    gkey = tids[:, None] * cpad + gc[None, :]
-    gpay = gmask
-    if cf_ok:
-        gpay = gpay | (ex.cf_chunk[gc][None, :] << nsb)
-    gpacked = jnp.where(gvalid, gkey * (1 << kshift) + gpay, _SENTINEL)
-
-    packed_all = jnp.concatenate([lpacked.reshape(-1), gpacked.reshape(-1)])
-    if occ:
-        ge3 = occ_pay((tids // tiles_x)[:, None], ex.cy0[gc][None, :],
-                      ex.cy1[gc][None, :], ex.qz[gc][None, :])
-        e3_all = jnp.concatenate([le3.reshape(-1), ge3.reshape(-1)])
-        # Key+payload co-sort (measured free vs single-array — the
-        # PACK_SORT note): the occlusion payload rides the first sort.
-        spk, se3 = jax.lax.sort((packed_all, e3_all), dimension=0,
-                                num_keys=1)
-    else:
-        spk = jnp.sort(packed_all)                   # ONE global sort
-        se3 = jnp.zeros_like(spk)
-    N = packed_all.shape[0]
-    skey = spk >> kshift                             # tile·cpad + cid
-    valid = spk != _SENTINEL
-    smsk = spk & ((1 << nsb) - 1)
-    scf = (spk >> nsb) & 1 if cf_ok else jnp.zeros_like(spk)
-
-    # Run detection on the sorted stream (the flat analog of _pack_runs):
-    # break where the key step ≠ +1 — tile boundaries always break because
-    # cpad > C.
-    idx = jnp.arange(N, dtype=jnp.int32)
-    prev = jnp.concatenate([jnp.full((1,), -2, jnp.int32), skey[:-1]])
-    brk = valid & (skey != prev + 1)
-    first = jax.lax.cummax(jnp.where(brk, idx, -1))
-    pos = idx - first
-    newrun = valid & (brk | (pos % R == 0))
-    stop = newrun | ~valid
-    ln = jnp.ones_like(skey)
-    rmask = jnp.where(valid, smsk, 0)
-    rcf = jnp.where(valid, scf, 1)     # run cf = AND over member chunks
-    if occ:
-        sq = se3 // 256
-        ss0 = (se3 // 16) % 16
-        ss1 = se3 % 16
-        rq = jnp.where(valid, sq, 0)       # run bound = min z = MAX q
-        rs0 = jnp.where(valid, ss0, 15)    # strip range = union
-        rs1 = jnp.where(valid, ss1, 0)
-    alive = jnp.ones_like(valid)
-    for k in range(1, R):
-        nxt = jnp.concatenate([stop[k:], jnp.ones((k,), bool)])
-        alive = alive & ~nxt
-        ln = ln + alive.astype(jnp.int32)
-        mk = jnp.concatenate([smsk[k:], jnp.zeros((k,), smsk.dtype)])
-        rmask = rmask | jnp.where(alive, mk << (nsb * k), 0)
-        ck = jnp.concatenate([scf[k:], jnp.ones((k,), scf.dtype)])
-        rcf = rcf & jnp.where(alive, ck, 1)
-        if occ:
-            qk = jnp.concatenate([sq[k:], jnp.zeros((k,), sq.dtype)])
-            rq = jnp.maximum(rq, jnp.where(alive, qk, 0))
-            s0k = jnp.concatenate([ss0[k:], jnp.zeros((k,), ss0.dtype)])
-            rs0 = jnp.minimum(rs0, jnp.where(alive, s0k, 15))
-            s1k = jnp.concatenate([ss1[k:], jnp.zeros((k,), ss1.dtype)])
-            rs1 = jnp.maximum(rs1, jnp.where(alive, s1k, 0))
-
-    # Compact run starts with one more sort.  Entry = skey·32 + cf·16 +
-    # len (len ≤ RUN_CHUNKS ≤ 8 fits 4 bits).  Without occlusion the
-    # entry IS the sort key (entry order == key order: each tile's runs
-    # stay a contiguous, cid-sorted range).  With occlusion the key is
-    # ``tile·8192 + (2²² − run q) >> 9`` — tile-major still (contiguous
-    # ranges preserved) but intra-tile FRONT-TO-BACK, so the kernels'
-    # strip z converges on the near occluders before the far runs test
-    # against it, and the capacity cap drops the farthest runs first.
-    entries = jnp.where(newrun, skey * 32 + rcf * 16 + ln, _SENTINEL)
-    if occ:
-        e3run = rq * 256 + rs0 * 16 + rs1
-        zrank = jnp.minimum((2 ** OCC_QBITS - rq) >> OCC_SORT_SHIFT, 8191)
-        key2 = jnp.where(newrun, (skey // cpad) * 8192 + zrank, _SENTINEL)
-        k2s, es, em, e3s = jax.lax.sort((key2, entries, rmask, e3run),
-                                        dimension=0, num_keys=1)
-        rstarts = jnp.searchsorted(k2s, tids * 8192).astype(jnp.int32)
-        rends = jnp.searchsorted(k2s, (tids + 1) * 8192).astype(jnp.int32)
-    else:
-        es, em = jax.lax.sort((entries, rmask), dimension=0, num_keys=1)
-        e3s = jnp.zeros_like(es)
-        rstarts = jnp.searchsorted(es, tids * (cpad * 32)).astype(jnp.int32)
-        rends = jnp.searchsorted(
-            es, (tids + 1) * (cpad * 32)).astype(jnp.int32)
-    raw = rends - rstarts
-    cap = K + G
-    counts = jnp.minimum(raw, cap)
-    run_dropped = jnp.maximum(raw - cap, 0).sum()
-
-    header = jnp.stack([rstarts // 128, rstarts % 128, counts])
-
-    W = stream_win_rows(K, G)
-    NR = -(-N // 128) + W                            # guard rows for the
-    pad = NR * 128 - N                               # fixed-size window DMA
-    es = jnp.pad(es, (0, pad), constant_values=-1).reshape(NR, 128)
-    em = jnp.pad(em, (0, pad)).reshape(NR, 128)
-    e3s = jnp.pad(e3s, (0, pad)).reshape(NR, 128)
+    skey, smask = jax.lax.sort(
+        (jnp.concatenate([lkey.reshape(-1), gkey.reshape(-1)]),
+         jnp.concatenate([lmask.reshape(-1), gmask.reshape(-1)])),
+        num_keys=1)
+    starts = jnp.searchsorted(skey, tids * C).astype(jnp.int32)
+    ends = jnp.searchsorted(skey, (tids + 1) * C).astype(jnp.int32)
+    valid = skey != _SENTINEL
+    stream = jnp.stack([jnp.where(valid, skey % C, 0),
+                        jnp.where(valid, smask, 0)], axis=1)
     return StreamBins(
-        header=header,
-        stream=jnp.stack([es, em, e3s], axis=1),
-        overflow=(run_dropped + glob_dropped).astype(jnp.int32),
+        header=jnp.stack([starts, ends - starts]),
+        stream=stream,
+        overflow=jnp.maximum(glob.sum() - G, 0).astype(jnp.int32),
     )

@@ -1,29 +1,26 @@
 """Visibility buffer → dense per-pixel fragment inputs.
 
 Given the raster output {tri_id, λ1, λ2} this reconstructs the interpolated
-vertex varyings per pixel — the TPU equivalent of the hardware
-interpolators feeding ``fs_main``.
+vertex varyings per pixel — the equivalent of the hardware interpolators
+feeding ``fs_main``.
 
-Gather strategy (measured on v5e): XLA's TPU gather costs ~constant per
-ROW regardless of row width, and per-pixel gathers dominate the frame —
-so per-pixel work is exactly ONE wide row gather.  The per-triangle
-record packs everything pixel shading needs that is constant per triangle:
+Per-pixel work is one row gather.  The per-triangle record packs
+everything pixel shading needs that is constant per triangle:
 
   [v0 varyings (17) | v1 (17) | v2 (17) | mat_id | tex_w | tex_h |
    blk_base_hi | blk_base_lo | blk_w]
 
 including the material's texture parameters (so the samplers need no
 additional per-pixel parameter gathers; the row base is split into two
-f32-exact halves).  Records are built with cheap per-TRIANGLE row gathers
-(T rows ≈ 12% of the pixel count).
+f32-exact halves).  Records are built per TRIANGLE, either with row
+gathers of per-vertex varyings or, on the corner-major path, from the
+corner planes directly.
 """
 
 from __future__ import annotations
 
-import os as _os
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from kanirenderer_tpu.ops.raster_xla import VisBuffer
@@ -31,16 +28,6 @@ from kanirenderer_tpu.ops.raster_xla import VisBuffer
 Array = jnp.ndarray
 
 USED = 17  # varying channels 17..NV are padding (see ops/vertex.py layout)
-
-# Corner-major record assembly (regression triage, jobs 316/326-330): a
-# (T, 128) jnp.stack(axis=1) of planar (T,) columns composed with the fused
-# Pallas kernel makes XLA decompose the stack into ~76 per-lane (C, CHUNK, 1)
-# buffers ping-ponged between transposed layouts — +57 ms/frame on chip
-# (110.9 vs 45.7 ms composed geom→raster, identical outputs).  The shipped
-# "planarT" build stacks planar (128, T) — a contiguous concat — behind an
-# optimization_barrier, then ONE transpose that the pallas operand's default
-# layout materializes as a single tiled relayout copy.  KANI_REC_BUILD=stack
-# keeps the regressing direct stack for A/B re-verification.
 
 
 class PixelBuffer(NamedTuple):
@@ -53,20 +40,15 @@ class PixelBuffer(NamedTuple):
     mask: Array      # (H, W) bool — True where geometry covers the pixel
     z: Array         # (H, W) f32 depth
     overflow: Array = jnp.zeros((), jnp.int32)  # () i32 — chunks DROPPED
-    #   by binning capacity caps (Pallas path; 0 = complete geometry).
+    #   by binning capacity (tile backend; 0 = complete geometry).
     #   Surfaced through FrameOutputs so the host loop can warn.
 
 
 def build_tri_records(tri_idx: Array, tri_mat: Array, varyings: Array,
                       mat_blk_base: Array, mat_blk_w: Array,
-                      mat_tex_size: Array, setup: Array = None,
-                      extra: Array = None) -> Array:
-    """(T, 3·USED+6) per-triangle shading records.
-
-    With ``setup`` (the (T, 16) triangle_setup rows), they are prepended
-    inside the same concat — (T, 16+3·USED+6) "fat" rows for the fused
-    Pallas kernel's phase 2, which recomputes barycentrics from the edge
-    lanes (ops/raster_pallas.FAT_LANES layout) with no extra relayout.
+                      mat_tex_size: Array, extra: Array = None) -> Array:
+    """(T, 3·USED+6) per-triangle shading records from per-vertex
+    varyings.
 
     ``extra``: precomputed static material-param lanes (Scene.tri_extra,
     planar (6, T)); material assignment is static per scene, so passing
@@ -87,56 +69,33 @@ def build_tri_records(tri_idx: Array, tri_mat: Array, varyings: Array,
         base_lo = base - base_hi * 65536
         extra = jnp.stack([tri_mat, tw, th, base_hi, base_lo, bw],
                           axis=1).astype(jnp.float32)
-    if setup is None:
-        return jnp.concatenate([r0, r1, r2, extra], axis=1)
-    # Fat layout for the fused kernel's phase 2 (raster_pallas.FAT_LANES):
-    # varyings as (v0, v1−v0, v2−v0) so interpolation needs no per-pixel
-    # subtract, plus the lsum edge row (Σ edge coeffs — barycentric
-    # normalization is affine too) so phase 2 never evaluates l0.
-    # Zero-padded to REC_WIDTH=128 lanes: Mosaic requires HBM DMA slices
-    # to be 128-aligned on the minor dim, and the fused kernel streams
-    # RUN-granular slabs of this array for BOTH phases.
-    lsum = setup[:, 0:3] + setup[:, 3:6] + setup[:, 6:9]
-    T = setup.shape[0]
-    used = setup.shape[1] + 3 * USED + extra.shape[1] + lsum.shape[1]
-    zpad = jnp.zeros((T, 128 - used), jnp.float32)
-    return jnp.concatenate([setup, r0, r1 - r0, r2 - r0, extra, lsum, zpad],
-                           axis=1)
+    return jnp.concatenate([r0, r1, r2, extra], axis=1)
 
 
-def build_tri_records_corners(varyings_c, setup_planes, tri_extra) -> Array:
-    """Fat (T, FAT_LANES) records from corner-major planes.
+def build_tri_records_corners(varyings_c, tri_extra: Array) -> Array:
+    """The same (T, 3·USED+6) records from corner-major planes.
 
     ``varyings_c``: 3 corners × USED (T,) planes (CornerOutputs.varyings);
-    ``setup_planes``: the 16 masked setup columns from
-    triangle_setup_corners; ``tri_extra``: planar (6, T) static material
-    lanes.  ONE 128-column stack (76 used lanes + zero pad to the Mosaic
-    DMA lane alignment) — the whole record assembly is a single relayout
-    with no per-frame gathers anywhere.  Same delta/lsum layout as
-    build_tri_records(setup=·) above.
+    ``tri_extra``: planar (6, T) static material lanes (Scene.tri_extra).
+    No gathers: the corners were expanded at scene build.
     """
-    sp = setup_planes
-    v0, v1, v2 = (varyings_c[k][:USED] for k in range(3))
-    cols = list(sp)
-    cols.extend(v0)
-    cols.extend(b - a for a, b in zip(v0, v1))
-    cols.extend(b - a for a, b in zip(v0, v2))
+    cols = [p for k in range(3) for p in varyings_c[k][:USED]]
     cols.extend(tri_extra[i] for i in range(6))
-    cols.extend(sp[i] + sp[3 + i] + sp[6 + i] for i in range(3))
-    zero = jnp.zeros_like(sp[0])
-    cols.extend([zero] * (128 - len(cols)))
-    if _os.environ.get("KANI_REC_BUILD", "planarT") == "stack":
-        return jnp.stack(cols, axis=1)
-    planar = jnp.stack(cols, axis=0)            # (128, T): contiguous concat
-    planar = jax.lax.optimization_barrier(planar)
-    return planar.T
+    return jnp.stack(cols, axis=1)
 
 
 def interpolate(vis: VisBuffer, tri_idx: Array, tri_mat: Array,
                 varyings: Array, mat_blk_base: Array, mat_blk_w: Array,
                 mat_tex_size: Array) -> PixelBuffer:
-    records = build_tri_records(tri_idx, tri_mat, varyings, mat_blk_base,
-                                mat_blk_w, mat_tex_size)
+    """``interpolate_records`` with records built from per-vertex
+    varyings."""
+    return interpolate_records(vis, build_tri_records(
+        tri_idx, tri_mat, varyings, mat_blk_base, mat_blk_w, mat_tex_size))
+
+
+def interpolate_records(vis: VisBuffer, records: Array) -> PixelBuffer:
+    """Per-pixel varyings and material parameters of each pixel's winning
+    triangle (``records`` from ``build_tri_records*``)."""
     tid = jnp.maximum(vis.tri, 0)
     rec = jnp.take(records, tid, axis=0)        # (H, W, 3·USED+6)
     l1 = vis.bary[..., 0]
@@ -159,4 +118,4 @@ def interpolate(vis: VisBuffer, tri_idx: Array, tri_mat: Array,
                        tex_h=rec[..., k + 2].astype(jnp.int32),
                        blk_base=base,
                        blk_w=rec[..., k + 5].astype(jnp.int32),
-                       mask=vis.tri >= 0, z=vis.z)
+                       mask=vis.tri >= 0, z=vis.z, overflow=vis.overflow)

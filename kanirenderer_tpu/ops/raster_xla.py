@@ -1,7 +1,7 @@
 """Brute-force visibility-buffer rasterizer in pure XLA.
 
-Correctness oracle for the Pallas tile kernel (ops/raster_pallas.py) and the
-path used on small frames / the CPU backend.  Evaluates every triangle
+Correctness oracle for the tile kernel (ops/raster_tiles.py) and the
+raster of the CPU backend.  Evaluates every triangle
 against every pixel in fixed-size batches under ``lax.scan`` — O(T · H · W),
 fine for cube-sized scenes and golden tests.
 
@@ -13,9 +13,8 @@ z/w interpolation rows, depth compare Less against a z-buffer cleared to 1.0
 
 The output is a *visibility buffer*: per pixel the winning triangle id, its
 depth, and perspective-correct barycentrics (λ1, λ2).  Shading happens later
-as a dense pass (shade/), which is the TPU-friendly decomposition: the
-irregular scatter-like raster work touches 4 small channels, while all
-heavy material math runs once per visible pixel.
+as a dense pass (shade/): the irregular raster work touches 4 small
+channels, while all heavy material math runs once per visible pixel.
 """
 
 from __future__ import annotations
@@ -35,6 +34,9 @@ class VisBuffer(NamedTuple):
     tri: Array   # (H, W) i32 triangle id, -1 = background
     z: Array     # (H, W) f32 depth in [0, 1], 1.0 = far/clear
     bary: Array  # (H, W, 2) f32 perspective-correct (λ1, λ2)
+    overflow: Array = jnp.zeros((), jnp.int32)  # () i32 — chunks dropped
+    #   by the tile binner's capacity (0 = complete geometry; the oracle
+    #   drops nothing)
 
 
 def _pixel_grid(width: int, height: int, y0=0.0, y_stride: int = 1,
@@ -42,7 +44,7 @@ def _pixel_grid(width: int, height: int, y0=0.0, y_stride: int = 1,
     xs = jnp.arange(width, dtype=jnp.float32) + 0.5
     r = jnp.arange(height, dtype=jnp.float32)
     if y_stride > 1:
-        # Interleaved row bands (ops/raster_pallas interleaved mode):
+        # Interleaved row bands (ops/raster_tiles interleaved mode):
         # band row block j = global tile row j·y_stride + k, with the
         # traced k·tile_h offset arriving via y0.
         r = (r // tile_h) * (y_stride * tile_h) + (r % tile_h)

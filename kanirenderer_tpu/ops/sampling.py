@@ -1,11 +1,8 @@
 """Gather-based texture sampling — one row gather per sampled surface.
 
-TPU row gathers have a fast path (hundreds of Mrows/s, measured on v5e)
-when the table is small enough to stage near the core and the consumer
-reduces the gathered lanes pointwise; a transpose consumer or an
-over-large table falls to ~90 Mrows/s.  Every sampler here is therefore
-built as ONE wide row gather followed by lane-space multiply-reduce math
-(never a transpose of the gathered array):
+Every sampler here is built as ONE wide row gather per pixel followed by
+lane-space multiply-reduce math (never a transpose of the gathered
+array):
 
 * ``sample_materials_blocks`` — diffuse + normal-map bilinear filtering
   with Repeat addressing from per-texture block-window tables
@@ -13,11 +10,10 @@ built as ONE wide row gather followed by lane-space multiply-reduce math
   into 6×4-texel blocks whose Repeat-wrapped 7×5 windows (35 texels ×
   RGB = 105 lanes) form one 128-lane row, so a pixel's whole 2×2
   bilinear footprint lives in one gathered row per texture, and the
-  tables carry ~1.46 lanes/texel instead of the 2×2-row layout's 4 —
-  keeping sponza-class texture sets inside the gather fast path.
+  tables carry ~1.46 lanes/texel instead of the 2×2-row layout's 4.
   Filtering applies separable bilinear weights as a lane mask, then one
   matmul against a constant (128, 3) channel selector reduces all three
-  channels in a single pass (MXU).  Matches the material sampler state
+  channels in a single pass.  Matches the material sampler state
   (reference src/texture.rs:162-173).
 * ``build_shadow_table`` / ``sample_shadow_pcf`` — the 3×3 PCF kernel of
   comparison taps (reference src/lib.rs:760-767, src/shader.wgsl:140-159)
@@ -136,9 +132,8 @@ def sample_materials_combined(tex_combined: Array, blk_base: Array,
 
     # Bilinear weights as hat functions of the lane's texel distance from
     # the in-window sample position (ax, ay): max(0, 1 − |lane − a|) hits
-    # 1−f at the anchor texel and f at its +1 neighbor — 5 VPU ops per
-    # axis instead of the 7 of the compare/select form (the stage is
-    # lane-math-bound around its one row gather).
+    # 1−f at the anchor texel and f at its +1 neighbor — 5 ops per axis
+    # instead of the 7 of the compare/select form.
     ax = (lx.astype(jnp.float32) + fx)[..., None]
     ay = (ly.astype(jnp.float32) + fy)[..., None]
     wx = jnp.maximum(1.0 - jnp.abs(_CLANE_COL[None, None, :] - ax), 0.0)
@@ -252,12 +247,10 @@ def build_shadow_table(shadow_map: Array) -> Array:
     Row (by·NB + bx) holds the clamp-padded 11×11 window anchored at
     texel (8bx−1, 8by−1), flattened row-major into lanes 0..120 (lanes
     121..127 are zero padding).  Built purely from reshapes and
-    concatenations of aligned slices (no strided slices — those cost
-    ~80 ms at 2048² on v5e; this form is free).
+    concatenations of aligned slices (no strided slices).
 
     Depth is quantized to 16-bit unorm (a classic D16 shadow buffer):
-    the table halves to 16.8 MB at 2048², keeping the per-pixel PCF row
-    gather on the fast path; the ≤½-quantum (7.6e-6) comparison shift is
+    the table halves to 16.8 MB at 2048²; the ≤½-quantum (7.6e-6) comparison shift is
     orders of magnitude below the shadow depth bias."""
     D = shadow_map.shape[0]
     assert D % _B == 0, "shadow_dim must be a multiple of 8"
@@ -340,9 +333,8 @@ def sample_shadow_pcf(shadow_table: Array, dim: int, u: Array, v: Array,
     # wy[dy]·wx[dx] with wy = [1−fy, 1, 1, fy] — the row/col sums of the
     # nine bilinear kernels.  That profile is a trapezoid in the lane's
     # distance d = lane_row − (ly + fy): clamp(min(d+1, 3−d), 0, 1) hits
-    # 1−fy, 1, 1, fy at d = −fy, 1−fy, 2−fy, 3−fy and 0 outside — 5 VPU
-    # ops per axis instead of the 8 of the compare/select formulation
-    # (this stage is lane-math-bound around one row gather).
+    # 1−fy, 1, 1, fy at d = −fy, 1−fy, 2−fy, 3−fy and 0 outside — 5 ops
+    # per axis instead of the 8 of the compare/select formulation.
     ay = (ly.astype(jnp.float32) + fy)[..., None]
     ax = (lx.astype(jnp.float32) + fx)[..., None]
     dyv = _LANE_ROW[None, None, :] - ay

@@ -16,19 +16,18 @@ tangent_light_position (src/shader.wgsl:106-112) and shadow_coord
 are already interpolated — TBN·const_point and lvp·world_position — and
 barycentric interpolation commutes with affine maps exactly, so the
 fragment stage (shade/forward.py) derives them per pixel instead.  That
-keeps 9 lanes out of the per-pixel record path (the raster kernel's
-phase-2 LUT resolution is the hot consumer) with identical results.
+keeps 9 lanes out of the per-pixel record gather with identical results.
 
 All math runs on component planes ((V,)/(T,) vectors) instead of (N, 3)
-rows: small minor dimensions waste most of the VPU's (8, 128) tiles, so
-arrays are transposed once at the boundaries and assembled once at the end.
+rows: arrays are transposed once at the boundaries and assembled once at
+the end.
 
 Triangle setup implements homogeneous 2D rasterization (Olano-Greer style):
 edge functions are built directly from clip-space coordinates via the
 adjugate of the 3x3 homogeneous screen matrix, so near-plane clipping is
 never needed — external triangles (some w <= 0) rasterize correctly.
-This replaces the hardware clipper+rasterizer fixed function, which has no
-TPU analog.
+This replaces the hardware clipper+rasterizer fixed function, which JAX
+cannot reach.
 
 Varying layout (NV = 24 lanes):
   0:3   tangent_position       (TBN rows · world_pos)
@@ -206,17 +205,6 @@ def run_vertex_stage_corners(scene, object_model: Array,
 class TriangleSetup(NamedTuple):
     setup: Array   # (T, NS) f32
     bbox: Array    # (T, 4) f32 — (x0, y0, x1, y1) pixel bounds, inclusive-exclusive
-    clipfree: Array = None  # (T,) bool — every covered pixel passes the
-    #                depth clip exactly (see _setup_from_corner_planes), so
-    #                the raster kernels may drop the two clip terms from
-    #                the coverage test for chunks of clip-free triangles
-    zmin: Array = None  # (T,) f32 — conservative lower bound on the NDC
-    #                depth of any COVERED pixel (min over bias-shifted
-    #                vertex z/w, clamped to ≥ 0 — covered pixels pass the
-    #                z ≥ 0 clip, so 0 is always a valid bound; external
-    #                near-plane crossers use exactly 0).  Drives the
-    #                binner's front-to-back run order and the kernels'
-    #                sub-tile occlusion skip (ops/binning.bin_stream).
 
 
 def triangle_setup(clip: Array, tri_idx: Array, tri_valid: Array,
@@ -238,22 +226,19 @@ def triangle_setup(clip: Array, tri_idx: Array, tri_valid: Array,
     y = (c12[1], c12[5], c12[9])
     z = (c12[2], c12[6], c12[10])
     w = (c12[3], c12[7], c12[11])
-    st, _ = _setup_from_corner_planes(
+    return _setup_from_corner_planes(
         x, y, z, w, tri_valid, width, height, cull_backfaces,
         depth_bias_constant, depth_bias_slope)
-    return st
 
 
 def triangle_setup_corners(clip_c, tri_valid: Array,
                            width: int, height: int, cull_backfaces: bool,
                            depth_bias_constant: float = 0.0,
-                           depth_bias_slope: float = 0.0):
+                           depth_bias_slope: float = 0.0) -> TriangleSetup:
     """``triangle_setup`` from corner-major clip planes (no gather).
 
     ``clip_c``: 3 corners × (x, y, z, w) planes, each (T,) — the output of
-    ``run_vertex_stage_corners``.  Returns (TriangleSetup, setup_planes)
-    where setup_planes are the 16 masked (T,) columns, so record assembly
-    can restack them without slicing the row-major setup array.
+    ``run_vertex_stage_corners``.
     """
     x, y, z, w = (tuple(clip_c[k][i] for k in range(3)) for i in range(4))
     return _setup_from_corner_planes(
@@ -326,7 +311,6 @@ def _setup_from_corner_planes(x, y, z, w, tri_valid, width, height,
     zrow = tuple((r0[j] * z[0] + r1[j] * z[1] + r2[j] * z[2]) * rdet
                  for j in range(3))
 
-    bias = None
     if depth_bias_constant or depth_bias_slope:
         # z is affine: its pixel gradient IS (zrow[0], zrow[1]) exactly
         # (the old rational form needed a vertex-averaged ww estimate).
@@ -334,23 +318,6 @@ def _setup_from_corner_planes(x, y, z, w, tri_valid, width, height,
         bias = depth_bias_slope * max_slope \
             + depth_bias_constant * (2.0 ** -23)
         zrow = (zrow[0], zrow[1], zrow[2] + bias)
-
-    # Clip-free flag: zw(p) = Σ l_i·z_i and ww(p) − zw(p) = Σ l_i·(w_i−z_i)
-    # with all l_i ≥ 0 at covered pixels, so if every (bias-shifted) vertex
-    # has z ∈ [0, w] then every covered pixel passes the depth clip — a
-    # pure sign argument, exact for external triangles too.  The raster
-    # kernels use the per-chunk AND of this to drop the clip terms from
-    # coverage (KANI_CLIPFREE).  Extreme-sliver triangles (|det| → 0)
-    # whose affine-z coefficients could overflow mid-tile to inf − inf =
-    # NaN are kept OFF the fast path: the fast coverage test has no z
-    # term to reject a NaN, and the depth-only running-min would keep it
-    # forever.  The slow pass's q = min(..., z, 1 − z) rejects NaN.
-    zb = z if bias is None else tuple(z[k] + w[k] * bias for k in range(3))
-    # |a|·x + |b|·y + |c| stays finite anywhere on screen at this bound.
-    zsafe = all3(lambda k: jnp.abs(zrow[k]) < 1e30)
-    clipfree_geo = all3(lambda k: (zb[k] >= 0.0) & (w[k] - zb[k] >= 0.0)) \
-        & zsafe
-
 
     # Screen bbox of the VISIBLE portion.  External (near-plane-crossing)
     # triangles would project to unbounded regions, so the bbox — and only
@@ -398,25 +365,6 @@ def _setup_from_corner_planes(x, y, z, w, tri_valid, width, height,
     onscreen = (x1 > x0) & (y1 > y0)
     valid = valid & onscreen
 
-    # Conservative per-triangle depth lower bound for occlusion culling:
-    # z(p) is affine over the triangle, so its minimum over covered pixels
-    # sits at a vertex (zb[k]/w[k], the bias-shifted NDC z).  Covered
-    # pixels also pass the z ≥ 0 depth clip (explicitly, or via the
-    # clip-free certification), so clamping at 0 keeps the bound valid —
-    # and external triangles (any w ≤ eps; vertex z/w unbounded) simply
-    # take 0, the never-skip value.  Invalid triangles take +inf so they
-    # never loosen their chunk's bound (ops/binning.bin_stream reduces
-    # per-chunk minima).
-    anyback = ~(front[0] & front[1] & front[2])
-    zv = [zb[k] / jnp.where(front[k], w[k], 1.0) for k in range(3)]
-    zmin_t = jnp.minimum(jnp.minimum(zv[0], zv[1]), zv[2])
-    zmin_t = jnp.where(anyback, 0.0, jnp.maximum(zmin_t, 0.0))
-    zmin_t = jnp.where(valid, zmin_t, jnp.inf)
-    # Invalid rows (zeroed, l0 ≡ −1 — never covered) count as clip-free
-    # so tail-padded and offscreen-member chunks stay on the fast path;
-    # computed from the FINAL validity so a triangle invalidated only by
-    # the onscreen test can't demote its chunk to the slow pass.
-    clipfree = clipfree_geo | ~valid
     # Invalid triangles get an empty bbox so binning skips them.
     x1 = jnp.where(valid, x1, 0.0)
     y1 = jnp.where(valid, y1, 0.0)
@@ -437,12 +385,6 @@ def _setup_from_corner_planes(x, y, z, w, tri_valid, width, height,
               zrow[0] * vf, zrow[1] * vf, zrow[2] * vf,
               zero, zero, zero,
               vf]
-    # Planar stack + barrier + one transpose, NOT jnp.stack(axis=1): a
-    # column stack composed with a Pallas consumer makes XLA decompose it
-    # into per-lane transposed-layout buffers (+57 ms/frame on the record
-    # array — see ops/interpolate.build_tri_records_corners).  The depth
-    # raster streams slabs of this array, so it gets the same production.
-    setup = jax.lax.optimization_barrier(jnp.stack(planes, axis=0)).T
+    setup = jnp.stack(planes, axis=1)
     bbox = jnp.stack([x0, y0, x1, y1], axis=1)
-    return TriangleSetup(setup=setup, bbox=bbox, clipfree=clipfree,
-                         zmin=zmin_t), planes
+    return TriangleSetup(setup=setup, bbox=bbox)

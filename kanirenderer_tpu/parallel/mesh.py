@@ -1,22 +1,22 @@
 """Multi-chip rendering: framebuffer row-band sharding over a device Mesh.
 
 The reference has no distributed mode (its only parallelism is host
-threading, reference src/lib.rs:1399-1650); the natural TPU scale axis is
-screen-space data parallelism: each chip rasterizes and shades a horizontal
-band of the framebuffer.
+threading, reference src/lib.rs:1399-1650); the natural scale axis is
+screen-space data parallelism: each device rasterizes and shades a
+horizontal band of the framebuffer.
 
 Design (SURVEY §5.8):
 * the (small) scene and per-frame state are replicated on every chip —
   there is no per-frame scene communication at all;
 * the vertex stage + triangle setup run replicated (cheap, avoids an
-  all-gather of clip coordinates over ICI);
+  all-gather of clip coordinates);
 * each chip rasterizes only its rows (`passes/frame.render_band` — the
   SAME pipeline body the single-chip path jits, so the two cannot drift):
   the band's tile binning makes off-band triangles nearly free, and every
-  backend (Pallas tile kernel on TPU, XLA oracle elsewhere), render mode,
-  and the deferred pipeline work sharded;
+  backend (tile kernel on a GPU, XLA oracle on the CPU), render mode, and
+  the deferred pipeline work sharded;
 * a FRESH shadow map is itself row-sharded: each chip rasters its band
-  of the light-space map and one ICI ``all_gather`` assembles the full
+  of the light-space map and one ``all_gather`` assembles the full
   (replicated) map — the only per-frame collective, amortizing the
   shadow raster across chips; a host-cached map may be passed in
   exactly like the single-chip path (then there is no collective);
@@ -41,17 +41,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
-import inspect as _inspect
-# The replication-check kwarg was renamed check_rep -> check_vma; probe
-# the actual signature rather than inferring from the import location.
-_SHARD_KW = (
-    {"check_vma": False}
-    if "check_vma" in _inspect.signature(shard_map).parameters
-    else {"check_rep": False})
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from kanirenderer_tpu.core.types import FrameState, RenderConfig, Scene
@@ -107,7 +97,7 @@ def _render_sharded(scene: Scene, state: FrameState, config: RenderConfig,
     specs_in = (P(), P(), P())
     fn = shard_map(band, mesh=mesh, in_specs=specs_in,
                    out_specs=(P(axis, None, None), P(axis, None)),
-                   **_SHARD_KW)
+                   check_vma=False)
     image, depth = fn(scene, state, shadow_map)
     return FrameOutputs(image=image, depth=depth,
                         shadow=jnp.zeros((1, 1), jnp.float32))
@@ -125,10 +115,8 @@ def render_frame_sharded(scene: Scene, state: FrameState,
     chip), same semantics as ``render_frame``'s static-external path.
 
     ``interleave``: INTERLEAVED tile-row bands instead of contiguous ones
-    (r5 load balancing): a contiguous split is gated by the heaviest
-    band — measured 23.2 vs 17.6 ms/band at n=2 on the bench scene
-    (tests/artifacts/multichip_scaling_r5.json) — while interleaving
-    spreads content skew to tile-row granularity.  The returned
+    (load balancing): a contiguous split is gated by the heaviest band,
+    while interleaving spreads content skew to tile-row granularity.  The returned
     image/depth rows are band-major; reassemble with
     ``deinterleave_rows(np.asarray(out.image), n, config.tile_h,
     config.height)``.  Not supported in DEBUG mode (its overlays anchor
@@ -172,7 +160,7 @@ def _render_sharded_fresh(scene: Scene, state: FrameState,
 
     fn = shard_map(band, mesh=mesh, in_specs=(P(), P()),
                    out_specs=(P(axis, None, None), P(axis, None)),
-                   **_SHARD_KW)
+                   check_vma=False)
     image, depth = fn(scene, state)
     return FrameOutputs(image=image, depth=depth,
                         shadow=jnp.zeros((1, 1), jnp.float32))

@@ -1,7 +1,7 @@
 """Frame presentation: PNG/GIF writers and an optional live window.
 
-The reference presents to a winit swapchain window (src/lib.rs:2044).  A TPU
-host is typically headless, so the primary sinks are:
+The reference presents to a winit swapchain window (src/lib.rs:2044).  An
+accelerator host is typically headless, so the primary sinks are:
 
 * ``PngSink``  — one PNG per frame (or a single frame);
 * ``GifSink``  — animated GIF capture of a fly-through;
@@ -84,9 +84,8 @@ class WindowSink:
 
     ``scales_preview``: the sink accepts the present-path preview at its
     NATIVE (device-downsampled) resolution plus the target ``view`` size
-    and scales it itself — one PIL nearest-neighbor resize (C speed,
-    ~2-4 ms at 1080p) instead of the loop's legacy double ``np.repeat``
-    host upscale (~25 ms at 1080p, job r4/043's closing decomposition).
+    and scales it itself — one PIL nearest-neighbor resize (C speed)
+    instead of the loop's double ``np.repeat`` host upscale.
     """
 
     scales_preview = True

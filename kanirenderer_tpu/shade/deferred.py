@@ -28,7 +28,7 @@ wherever tangent frames are orthonormal;
 On a visibility-buffer renderer the G-buffer write is nearly free: the
 raster already produced {tri, z, λ}, so "writing the G-buffer" is the
 interpolation pass plus the material fetch — exactly the decoupling a GPU
-deferred pipeline buys, which is why this is the TPU-native formulation.
+deferred pipeline buys.
 """
 
 from __future__ import annotations

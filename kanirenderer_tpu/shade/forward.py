@@ -2,7 +2,7 @@
 
 Faithful reimplementation of the reference fragment shaders as
 channel-planar tensor ops — colors and vectors are (3, H, W), scalars are
-(H, W) planes, so every operation is (8, 128)-tileable on the VPU:
+(H, W) planes, so every operation is a dense elementwise plane op:
 
 * lit+shadow LDR — reference src/shader.wgsl:163-262 (Reinhard tonemap)
 * lit+shadow HDR — reference src/shader_hdr.wgsl (identical lighting,
@@ -127,7 +127,7 @@ def _blinn_phong(tangent_normal: Array, light_dir: Array, view_dir: Array,
     diff = jnp.maximum(_dot3(tangent_normal, light_dir), 0.0)
     s1 = jnp.maximum(_dot3(tangent_normal, half_dir), 0.0)
     # x^32 by five squarings — jnp ** 32.0 lowers to a transcendental
-    # pow (exp·log) on the VPU, ~10× the cost at 2M px × 3 ch × lights.
+    # pow (exp·log), far costlier at 2M px × 3 ch × lights.
     s2 = s1 * s1
     s4 = s2 * s2
     s8 = s4 * s4

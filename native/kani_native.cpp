@@ -1,14 +1,14 @@
 // kani_native — native runtime components of kanirenderer_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library provides the
+// The device compute path is JAX/XLA/Pallas; this library provides the
 // host-side hot loops and the embeddable C ABI, mirroring the role of the
 // reference's native (Rust) layer:
 //   * OBJ parsing (reference src/resources.rs:63-101 via tobj: triangulate
 //     + single-index semantics) — the CPU-bound part of scene loads;
 //   * per-vertex tangent/bitangent accumulation (the O(tris) hot loop,
 //     reference src/resources.rs:204-245);
-//   * Morton ordering of triangle centroids (TPU binning layout,
-//     no reference analog);
+//   * Morton ordering of triangle centroids (the tile binner's chunk
+//     layout, no reference analog);
 //   * PNG encode (frame dumps; zlib, filter 0 — matches io/image.py);
 //   * run_kanirenderer() C ABI (reference src/lib.rs:2174-2192) that
 //     drives kanirenderer_tpu.api.run IN-PROCESS by embedding CPython via

@@ -217,7 +217,7 @@ def test_aces_tonemap_hand_computed():
 
 
 def test_deferred_lighting_hand_computed():
-    """Deferred pixel (VERDICT r5 item 7): world-space sun + G-buffer
+    """Deferred pixel: world-space sun + G-buffer
     8-bit albedo quantization + bf16 attachment storage, hand-evaluated
     in f64 against the scaffolding's intended math
     (src/deferredRenderPipeline.rs:193-271 — the lighting rig of
@@ -276,7 +276,7 @@ def test_deferred_lighting_hand_computed():
 
 
 def test_wireframe_edge_distance_coverage_hand_computed():
-    """Wireframe coverage (VERDICT r5 item 7): a pixel is covered iff its
+    """Wireframe coverage: a pixel is covered iff its
     center lies inside the triangle AND within wire_thresh=0.7 px of an
     edge (the PolygonMode::Line analog, reference src/lib.rs:254 +
     src/shader_wireframe.wgsl:140-144 flat white).  Hand-derived f64

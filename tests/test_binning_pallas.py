@@ -1,14 +1,25 @@
-"""Binning correctness + Pallas rasterizer parity with the XLA oracle."""
+"""Binning correctness + tile-kernel parity with the XLA oracle.
+
+The tile kernel (ops/raster_tiles.py) runs here through the Pallas
+interpreter (``RenderConfig.interpret``); on a GPU the same kernel is
+compiled by Triton (chip_smoke.py checks it at real widths)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
 import kanirenderer_tpu as kani
 from kanirenderer_tpu.core import math3d
-from kanirenderer_tpu.core.types import CHUNK_SIZE
+from kanirenderer_tpu.core.types import CHUNK_SIZE, SUBBATCH, SUBS_PER_CHUNK
 from kanirenderer_tpu.models.procedural import cube_scene, sponza_standin_scene
-from kanirenderer_tpu.ops import binning, raster_pallas, raster_xla
+from kanirenderer_tpu.ops import binning, raster_tiles, raster_xla
 from kanirenderer_tpu.ops.vertex import run_vertex_stage, triangle_setup
+
+
+def _cfg(**kw):
+    """A tile-backend config for the Pallas interpreter."""
+    return kani.RenderConfig(raster_backend="tile", interpret=True, **kw)
 
 
 def _setup_for(scene, cam, cfg, cull=True):
@@ -24,6 +35,22 @@ def _setup_for(scene, cam, cfg, cull=True):
                           cfg.width, cfg.height, cull)
 
 
+def _tile_entries(bins, tile):
+    hdr = np.asarray(bins.header)
+    first, count = int(hdr[0, tile]), int(hdr[1, tile])
+    return np.asarray(bins.stream)[first:first + count]
+
+
+def _assert_parity(vx, vp, bary=True):
+    same = np.asarray(vx.tri) == np.asarray(vp.tri)
+    assert (~same).mean() < 0.002, (~same).mean()
+    np.testing.assert_allclose(np.asarray(vx.z)[same], np.asarray(vp.z)[same],
+                               atol=1e-6)
+    if bary:
+        np.testing.assert_allclose(np.asarray(vx.bary)[same],
+                                   np.asarray(vp.bary)[same], atol=1e-5)
+
+
 OUTSIDE_CAM = kani.CameraState(
     position=jnp.array([60.0, 45.0, 80.0], jnp.float32),
     yaw=jnp.float32(np.deg2rad(-127.0)),
@@ -35,77 +62,88 @@ COURTYARD_CAM = kani.CameraState(
 
 
 def test_binning_covers_all_tiles_with_relevant_chunks():
+    """Every tile lists exactly the chunks with a subbatch bbox that
+    overlaps it, in ascending chunk order, each with its exact subbatch
+    overlap mask."""
     scene = sponza_standin_scene(target_tris=6000, num_materials=4,
                                  tex_size=32)
     cfg = kani.RenderConfig(width=256, height=192)
     st = _setup_for(scene, COURTYARD_CAM, cfg)
-    bins = binning.bin_chunks(st.bbox, cfg.tiles_x, cfg.tiles_y,
-                              cfg.tile_w, cfg.tile_h)
-    lists = np.asarray(bins.tile_lists)
-    counts = np.asarray(bins.tile_counts)
-    bbox = np.asarray(st.bbox).reshape(-1, CHUNK_SIZE, 4)
-    cx0 = bbox[..., 0].min(1); cy0 = bbox[..., 1].min(1)
-    cx1 = bbox[..., 2].max(1); cy1 = bbox[..., 3].max(1)
-    # Every nonempty chunk must appear in every tile its bbox overlaps.
+    bins = binning.bin_stream(st.bbox, cfg.tiles_x, cfg.tiles_y,
+                              cfg.tile_w, cfg.tile_h,
+                              cfg.max_tiles_per_chunk, cfg.max_global_chunks)
+    assert int(bins.overflow) == 0
+    sb = np.asarray(st.bbox).reshape(-1, SUBS_PER_CHUNK, SUBBATCH, 4)
+    sx0, sy0 = sb[..., 0].min(-1), sb[..., 1].min(-1)
+    sx1, sy1 = sb[..., 2].max(-1), sb[..., 3].max(-1)
     for ty in range(cfg.tiles_y):
         for tx in range(cfg.tiles_x):
-            tile = set(lists[ty, tx, :counts[ty, tx]].tolist())
             x0, x1 = tx * cfg.tile_w, (tx + 1) * cfg.tile_w
             y0, y1 = ty * cfg.tile_h, (ty + 1) * cfg.tile_h
-            for c in range(len(cx0)):
-                if cx1[c] <= cx0[c]:
-                    continue
-                overlaps = (cx0[c] < x1 and cx1[c] > x0
-                            and cy0[c] < y1 and cy1[c] > y0)
-                if overlaps:
-                    assert c in tile, (ty, tx, c)
-    # valid prefix property: -1 only after count
-    for ty in range(cfg.tiles_y):
-        for tx in range(cfg.tiles_x):
-            n = counts[ty, tx]
-            assert (lists[ty, tx, :n] >= 0).all()
-            assert (lists[ty, tx, n:] == -1).all()
+            hit = (sx0 < x1) & (sx1 > x0) & (sy0 < y1) & (sy1 > y0)
+            want = {c: sum(1 << s for s in range(SUBS_PER_CHUNK)
+                           if hit[c, s])
+                    for c in np.nonzero(hit.any(axis=1))[0]}
+            got = _tile_entries(bins, ty * cfg.tiles_x + tx)
+            assert list(got[:, 0]) == sorted(want), (ty, tx)
+            assert {int(c): int(m) for c, m in got} == want, (ty, tx)
+
+
+def test_binning_key_above_4096_tiles():
+    """The (tile, chunk) key is tile·C + chunk in an int32: grids far
+    beyond 4,096 tiles bin correctly at the bench scene's chunk count
+    (2,048 chunks), and an unrepresentable grid is refused, not
+    wrapped."""
+    C = 2048
+    assert binning.max_key_tiles(C) > 8 * 4096
+    # One small triangle per chunk, chunk c on tile 4c of a 128 × 64 grid
+    # of 8 × 8 tiles (8,192 tiles); the chunk's other rows are empty.
+    bbox = np.zeros((C * CHUNK_SIZE, 4), np.float32)
+    bbox[:, 0:2] = 1024.0            # empty boxes (x1 = y1 = 0)
+    tiles_x, tiles_y, tw, th = 128, 64, 8, 8
+    for c in range(C):
+        t = (c * 4) % (tiles_x * tiles_y)
+        x, y = (t % tiles_x) * tw, (t // tiles_x) * th
+        bbox[c * CHUNK_SIZE] = [x + 1, y + 1, x + 3, y + 3]
+    bins = binning.bin_stream(jnp.asarray(bbox), tiles_x, tiles_y, tw, th,
+                              4, 4)
+    hdr = np.asarray(bins.header)
+    assert int(hdr[1].sum()) == C and int(bins.overflow) == 0
+    for c in (0, 1, 1500, C - 1):
+        t = (c * 4) % (tiles_x * tiles_y)
+        np.testing.assert_array_equal(_tile_entries(bins, t), [[c, 1]])
+    with pytest.raises(ValueError, match="int32"):
+        binning.bin_stream(jnp.asarray(bbox), 2**16, 2**4, 1, 1, 4, 4)
 
 
 def test_pallas_matches_xla_cube():
     scene = cube_scene()
-    cfg = kani.RenderConfig(width=256, height=192)
+    cfg = _cfg(width=256, height=192)
     st = _setup_for(scene, OUTSIDE_CAM, cfg)
     vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
-    vp = raster_pallas.rasterize(st, cfg)
-    # The pallas kernel resolves depth via cross-multiplied rationals, so
-    # tie-breaks on shared edges may differ at float precision.
-    same = np.asarray(vx.tri) == np.asarray(vp.tri)
-    assert (~same).mean() < 0.002, (~same).mean()
-    np.testing.assert_allclose(np.asarray(vx.z)[same], np.asarray(vp.z)[same],
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(vx.bary)[same],
-                               np.asarray(vp.bary)[same], atol=1e-5)
+    vp = raster_tiles.rasterize(st, cfg)
+    _assert_parity(vx, vp)
 
 
 def test_pallas_matches_xla_standin():
     scene = sponza_standin_scene(target_tris=6000, num_materials=4,
                                  tex_size=32)
-    cfg = kani.RenderConfig(width=256, height=192)
+    cfg = _cfg(width=256, height=192)
     st = _setup_for(scene, COURTYARD_CAM, cfg)
     vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
-    vp = raster_pallas.rasterize(st, cfg)
-    same = np.asarray(vx.tri) == np.asarray(vp.tri)
-    assert (~same).mean() < 0.002, (~same).mean()
-    np.testing.assert_allclose(np.asarray(vx.z)[same], np.asarray(vp.z)[same],
-                               atol=1e-6)
+    vp = raster_tiles.rasterize(st, cfg)
+    _assert_parity(vx, vp, bary=False)
 
 
 def test_pallas_mixed_clipfree_and_crossing_chunks():
-    """A clip-free chunk and a near-plane-crossing chunk fighting for the
-    same pixels must match the oracle — under KANI_CLIPFREE=1 this drives
-    both the fast path and the slow second pass of the kernels against
-    each other through the shared z buffer (run the file with the flag
-    flipped from its default to cover the other leg)."""
+    """A chunk of triangles inside the depth range and a chunk of
+    near-plane-crossing / beyond-far-plane triangles fighting for the same
+    pixels must match the oracle, through the raster and the per-pixel
+    record gather."""
     rng = np.random.RandomState(11)
     tris = []
     # chunk 0: CHUNK_SIZE small front-facing triangles, z strictly inside
-    # [0, w] at every vertex -> certified clip-free.
+    # [0, w] at every vertex.
     for _ in range(CHUNK_SIZE):
         cx, cy = rng.uniform(-0.7, 0.7, 2)
         z = rng.uniform(0.3, 0.7)
@@ -113,7 +151,7 @@ def test_pallas_mixed_clipfree_and_crossing_chunks():
         tris.append([(cx - s, cy - s, z, 1.0), (cx + s, cy - s, z, 1.0),
                      (cx, cy + s, z, 1.0)])
     # chunk 1: triangles with one vertex behind the eye (w < 0) or past
-    # the far plane (z > w) -> chunk not clip-free, slow pass.
+    # the far plane (z > w).
     for i in range(CHUNK_SIZE):
         cx, cy = rng.uniform(-0.5, 0.5, 2)
         if i % 2 == 0:
@@ -130,86 +168,47 @@ def test_pallas_mixed_clipfree_and_crossing_chunks():
     tri_idx = jnp.arange(T * 3, dtype=jnp.int32).reshape(T, 3)
     st = triangle_setup(clip, tri_idx, jnp.ones(T, bool), 256, 192,
                         cull_backfaces=False)
-    cfg = kani.RenderConfig(width=256, height=192)
+    cfg = _cfg(width=256, height=192)
     vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
-    vp = raster_pallas.rasterize(st, cfg)
-    same = np.asarray(vx.tri) == np.asarray(vp.tri)
-    assert (~same).mean() < 0.002, (~same).mean()
-    np.testing.assert_allclose(np.asarray(vx.z)[same], np.asarray(vp.z)[same],
-                               atol=1e-6)
+    vp = raster_tiles.rasterize(st, cfg)
+    _assert_parity(vx, vp)
     assert np.isfinite(np.asarray(vp.z)).all()
-    # The FUSED kernel (the production path — its slow pass is separate
-    # code from _raster_kernel's) must agree too.
-    from kanirenderer_tpu.ops.interpolate import build_tri_records
-    vary = jnp.zeros((T * 3, 24), jnp.float32)
-    rec = build_tri_records(tri_idx, jnp.zeros(T, jnp.int32), vary,
-                            jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32),
-                            jnp.ones((1, 2), jnp.int32), setup=st.setup)
-    pix = raster_pallas.rasterize_pixels(st, rec, cfg)
-    same_f = np.asarray(pix.mask) == (np.asarray(vx.tri) >= 0)
-    assert (~same_f).mean() < 0.002, (~same_f).mean()
-    both = np.asarray(pix.mask) & (np.asarray(vx.tri) >= 0)
-    np.testing.assert_allclose(np.asarray(pix.z)[both],
-                               np.asarray(vx.z)[both], atol=1e-5)
-    assert np.isfinite(np.asarray(pix.z)).all()
+    # Through the record gather: per-triangle varyings land on the pixels
+    # of the winning triangle.
+    from kanirenderer_tpu.ops.interpolate import interpolate
+    vary = jnp.asarray(np.repeat(np.arange(T, dtype=np.float32), 3)[:, None]
+                       * np.ones((1, 24), np.float32))
+    pix = interpolate(vp, tri_idx, jnp.zeros(T, jnp.int32), vary,
+                      jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32),
+                      jnp.ones((1, 2), jnp.int32))
+    cov = np.asarray(pix.mask)
+    np.testing.assert_array_equal(cov, np.asarray(vx.tri) >= 0)
+    np.testing.assert_allclose(np.asarray(pix.varyings)[0][cov],
+                               np.asarray(vp.tri)[cov], atol=1e-3)
 
 
-def test_pallas_tile_w_256_matches_xla():
-    """tile_w > 128 (two VPU lane groups per tile): phase-2's record LUT
-    repeats the 128-triangle row per lane group — parity vs the oracle on
-    a 384-wide frame (1.5 tiles, exercising the right-edge crop too)."""
+@pytest.mark.parametrize("tile", [(8, 256), (16, 32)])
+def test_pallas_tile_w_256_matches_xla(tile):
+    """Tile shape must not change the image: parity with the oracle on a
+    384-wide frame (the right-edge crop) for a wide and a small tile."""
     scene = sponza_standin_scene(target_tris=6000, num_materials=4,
                                  tex_size=32)
-    cfg = kani.RenderConfig(width=384, height=192, tile_w=256)
+    cfg = _cfg(width=384, height=192, tile_h=tile[0], tile_w=tile[1])
     st = _setup_for(scene, COURTYARD_CAM, cfg)
     vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
-    vp = raster_pallas.rasterize(st, cfg)
-    same = np.asarray(vx.tri) == np.asarray(vp.tri)
-    assert (~same).mean() < 0.002, (~same).mean()
-    np.testing.assert_allclose(np.asarray(vx.z)[same], np.asarray(vp.z)[same],
-                               atol=1e-6)
-    # Fused kernel (production path): the phase-2 LUT resolve must place
-    # each winner's record in BOTH lane groups correctly.
-    from kanirenderer_tpu.ops.interpolate import build_tri_records
-    T = scene.tri_idx.shape[0]
-    V = int(np.asarray(scene.tri_idx).max()) + 1
-    vary = jnp.zeros((V, 24), jnp.float32)
-    rec = build_tri_records(scene.tri_idx, jnp.zeros(T, jnp.int32), vary,
-                            jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32),
-                            jnp.ones((1, 2), jnp.int32), setup=st.setup)
-    pix = raster_pallas.rasterize_pixels(st, rec, cfg)
-    same_f = np.asarray(pix.mask) == (np.asarray(vx.tri) >= 0)
-    assert (~same_f).mean() < 0.002, (~same_f).mean()
-    # The fused kernel must equal the non-fused Pallas raster EXACTLY
-    # (same tournament; only phase-2's LUT resolve differs) — this pins
-    # the tile_w>128 lane-group repeat.  vs the oracle, exclude the
-    # handful of tie-break pixels where the two backends pick different
-    # but equal-depth winners.
-    both = np.asarray(pix.mask) & (np.asarray(vx.tri) >= 0)
-    np.testing.assert_array_equal(np.asarray(pix.z)[both],
-                                  np.asarray(vp.z)[both])
-    tie_ok = both & (np.asarray(vx.tri) == np.asarray(vp.tri))
-    np.testing.assert_allclose(np.asarray(pix.z)[tie_ok],
-                               np.asarray(vx.z)[tie_ok], atol=1e-5)
-    # Control at tile_w=128 on the same scene/frame: identical winners ->
-    # identical z (the tile width must not change the image).
-    cfg128 = kani.RenderConfig(width=384, height=192, tile_w=128)
-    pix128 = raster_pallas.rasterize_pixels(st, rec, cfg128)
-    same_w = np.asarray(pix.mask) == np.asarray(pix128.mask)
-    assert (~same_w).mean() < 0.002, (~same_w).mean()
-    b = np.asarray(pix.mask) & np.asarray(pix128.mask)
-    np.testing.assert_allclose(np.asarray(pix.z)[b],
-                               np.asarray(pix128.z)[b], atol=1e-6)
+    vp = raster_tiles.rasterize(st, cfg)
+    assert vp.tri.shape == (192, 384)
+    _assert_parity(vx, vp)
 
 
 def test_pallas_wireframe_matches_xla():
     scene = cube_scene()
-    cfg = kani.RenderConfig(width=256, height=192)
+    cfg = _cfg(width=256, height=192)
     st = _setup_for(scene, OUTSIDE_CAM, cfg, cull=False)
     vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height,
                                   wireframe=True,
                                   wire_thresh=cfg.wire_thresh_px)
-    vp = raster_pallas.rasterize(st, cfg, wireframe=True)
+    vp = raster_tiles.rasterize(st, cfg, wireframe=True)
     # identical coverage up to float-assoc differences on edge boundaries
     mismatch = (np.asarray(vx.tri) != np.asarray(vp.tri)).mean()
     assert mismatch < 0.002, mismatch
@@ -217,7 +216,7 @@ def test_pallas_wireframe_matches_xla():
 
 def test_pallas_shadow_depth_matches_xla():
     scene = cube_scene()
-    cfg = kani.RenderConfig(width=128, height=128, shadow_dim=256)
+    cfg = _cfg(width=128, height=128, shadow_dim=256)
     lights = kani.default_lights()
     lvp = math3d.directional_light_view_projection(
         lights.directional.direction, lights.directional.distance, 3000.0)
@@ -230,150 +229,56 @@ def test_pallas_shadow_depth_matches_xla():
                         cfg.shadow_dim, cfg.shadow_dim, False,
                         depth_bias_constant=2.0, depth_bias_slope=2.0)
     zx = raster_xla.rasterize_depth_xla(st.setup, cfg.shadow_dim)
-    zp = raster_pallas.rasterize_depth(st, cfg)
+    zp = raster_tiles.rasterize_depth(st, cfg)
     np.testing.assert_allclose(np.asarray(zx), np.asarray(zp), atol=1e-6)
 
 
 def test_overflow_diagnostic_counts_dropped_chunks():
-    """TileBins.overflow reports capacity drops (ADVICE r1: silent
-    truncation would make missing geometry untraceable)."""
-    import jax.numpy as jnp
-    from kanirenderer_tpu.core.types import CHUNK_SIZE
-    from kanirenderer_tpu.ops import binning
-
-    # 8 chunks all covering the same single tile; cap the per-tile list
-    # at 2 → 6 drops reported.
+    """StreamBins.overflow reports capacity drops (silent truncation would
+    make missing geometry untraceable): chunks spanning more tiles than
+    max_tiles_per_chunk go to the global list, capped at
+    max_global_chunks."""
+    # 8 chunks each spanning all 4 tiles of a 2 × 2 grid.
     T = 8 * CHUNK_SIZE
-    bbox = jnp.tile(jnp.asarray([[0.0, 0.0, 64.0, 8.0]], jnp.float32),
+    bbox = jnp.tile(jnp.asarray([[0.0, 0.0, 64.0, 16.0]], jnp.float32),
                     (T, 1))
-    bins = binning.bin_chunks(bbox, 1, 1, 128, 8,
-                              max_tiles_per_chunk=4,
-                              max_chunks_per_tile=2,
-                              max_global_chunks=4)
+    bins = binning.bin_stream(bbox, 2, 2, 32, 8, max_tiles_per_chunk=2,
+                              max_global_chunks=2)
     assert int(bins.overflow) == 6
-    assert int(bins.tile_counts[0, 0]) == 2
+    assert int(bins.header[1, 0]) == 2
 
     # ample caps → no drops
-    bins2 = binning.bin_chunks(bbox, 1, 1, 128, 8,
-                               max_tiles_per_chunk=4,
-                               max_chunks_per_tile=16,
-                               max_global_chunks=4)
+    bins2 = binning.bin_stream(bbox, 2, 2, 32, 8, max_tiles_per_chunk=4,
+                               max_global_chunks=2)
     assert int(bins2.overflow) == 0
-    assert int(bins2.tile_counts[0, 0]) == 8
+    np.testing.assert_array_equal(np.asarray(bins2.header[1]), [8] * 4)
 
 
 def test_overflow_surfaces_through_frame_outputs():
     """Capacity drops propagate raster->PixelBuffer->FrameOutputs so the
-    host loop can warn (VERDICT r2: silent drops in production)."""
+    host loop can warn."""
     from kanirenderer_tpu.passes.frame import render_frame
 
     scene = sponza_standin_scene(target_tris=6000, num_materials=4,
                                  tex_size=32)
-    cam = COURTYARD_CAM
-    lights = kani.default_lights()
-    state = kani.frame_state(scene, cam, lights)
+    state = kani.frame_state(scene, COURTYARD_CAM, kani.default_lights())
     # Starved capacities force drops.
-    cfg = kani.RenderConfig(width=256, height=192,
-                            mode=kani.RenderMode.UNLIT,
-                            raster_backend="pallas",
-                            max_tiles_per_chunk=4, max_chunks_per_tile=2,
-                            max_global_chunks=2)
+    cfg = _cfg(width=256, height=192, mode=kani.RenderMode.UNLIT,
+               max_tiles_per_chunk=1, max_global_chunks=1)
     out = render_frame(scene, state, cfg)
     assert int(out.raster_overflow) > 0
     # Ample capacities -> zero.
-    cfg2 = kani.RenderConfig(width=256, height=192,
-                             mode=kani.RenderMode.UNLIT,
-                             raster_backend="pallas")
+    cfg2 = _cfg(width=256, height=192, mode=kani.RenderMode.UNLIT)
     out2 = render_frame(scene, state, cfg2)
     assert int(out2.raster_overflow) == 0
 
 
-def test_stream_binning_matches_block(monkeypatch):
-    """KANI_BIN=stream (flat run stream + scalar-prefetch windows, the
-    default) must produce pixel-identical output to the packed-block
-    layout.  BIN_MODE is read at call time by raster_pallas._bin, so a
-    module attribute patch switches layouts without a reload."""
-    from kanirenderer_tpu.ops import interpolate, raster_pallas
-    from kanirenderer_tpu.ops.vertex import (run_vertex_stage_corners,
-                                             triangle_setup_corners)
-
-    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
-                                 tex_size=32)
-    cfg = kani.RenderConfig(width=256, height=192, raster_backend="pallas")
-    st = _setup_for(scene, COURTYARD_CAM, cfg)
-    # Records with the setup rows prepended (the fused kernel's input).
-    vp = math3d.perspective(jnp.deg2rad(cfg.fovy_deg), cfg.aspect,
-                            cfg.znear, cfg.zfar) @ math3d.camera_view_matrix(
-        COURTYARD_CAM.position, COURTYARD_CAM.yaw, COURTYARD_CAM.pitch)
-    vout = run_vertex_stage_corners(
-        scene, scene.object_model, scene.object_normal, vp,
-        COURTYARD_CAM.position, kani.default_lights(),
-        jnp.eye(4, dtype=jnp.float32))
-    setup, planes = triangle_setup_corners(
-        vout.clip, scene.tri_valid, cfg.width, cfg.height,
-        cull_backfaces=True)
-    records = interpolate.build_tri_records_corners(
-        vout.varyings, planes, scene.tri_extra)
-
-    def pixels():
-        # __wrapped__ bypasses the jit cache — BIN_MODE is read at trace
-        # time, so a cached executable would ignore the patch below.
-        return raster_pallas.rasterize_pixels.__wrapped__(
-            setup, records, cfg, False, None, None)
-
-    monkeypatch.setattr(raster_pallas, "BIN_MODE", "stream")
-    ps = pixels()
-    monkeypatch.setattr(raster_pallas, "BIN_MODE", "block")
-    pb = pixels()
-    np.testing.assert_array_equal(np.asarray(ps.mask), np.asarray(pb.mask))
-    np.testing.assert_array_equal(np.asarray(ps.mat_id),
-                                  np.asarray(pb.mat_id))
-    np.testing.assert_array_equal(np.asarray(ps.z), np.asarray(pb.z))
-    np.testing.assert_array_equal(np.asarray(ps.varyings),
-                                  np.asarray(pb.varyings))
-    assert int(ps.overflow) == 0 and int(pb.overflow) == 0
-
-
-def test_packed_sort_matches_cosort_fallback(monkeypatch):
-    """The single-array packed key sort (KANI_PACK_SORT=1, the default)
-    must produce identical bins to the key+payload co-sort fallback."""
-    import importlib
-    from kanirenderer_tpu.ops import binning as bmod
-
-    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
-                                 tex_size=32)
-    cfg = kani.RenderConfig(width=256, height=192)
-    st = _setup_for(scene, COURTYARD_CAM, cfg)
-
-    def bins_with(env_val):
-        monkeypatch.setenv("KANI_PACK_SORT", env_val)
-        importlib.reload(bmod)
-        return bmod.bin_chunks(st.bbox, cfg.tiles_x, cfg.tiles_y,
-                               cfg.tile_w, cfg.tile_h)
-
-    try:
-        b1 = bins_with("1")
-        b0 = bins_with("0")
-        np.testing.assert_array_equal(np.asarray(b1.packed),
-                                      np.asarray(b0.packed))
-        np.testing.assert_array_equal(np.asarray(b1.tile_lists),
-                                      np.asarray(b0.tile_lists))
-        np.testing.assert_array_equal(np.asarray(b1.tile_counts),
-                                      np.asarray(b0.tile_counts))
-        assert int(b1.overflow) == int(b0.overflow)
-    finally:
-        monkeypatch.delenv("KANI_PACK_SORT", raising=False)
-        importlib.reload(bmod)
-
-
-# ---- sub-tile occlusion culling (round 4) ----
+# ---- layered content ----
 
 def _two_layer_setup(width=256, height=128, nx=16, ny=8):
     """Two screen-covering quad grids at constant NDC depth: a NEAR layer
     (z = 0.2) in front of a FAR layer (z = 0.8).  Enough triangles for
-    several chunks so the binner forms multiple runs per tile; the far
-    layer is fully occluded, so the kernels' occlusion skip must fire —
-    and must not change the output."""
+    several chunks per tile; the far layer is fully occluded."""
     verts = []
     tris = []
 
@@ -393,8 +298,8 @@ def _two_layer_setup(width=256, height=128, nx=16, ny=8):
                 tris.append((v0, v1, v2))
                 tris.append((v1, v3, v2))
 
-    layer(0.2)   # near first so chunk ids put it early; the z-order
-    layer(0.8)   # sort must handle either arrangement anyway
+    layer(0.2)
+    layer(0.8)
     T = len(tris)
     pad = (-T) % CHUNK_SIZE
     tris += [(0, 0, 0)] * pad
@@ -405,125 +310,88 @@ def _two_layer_setup(width=256, height=128, nx=16, ny=8):
                           cull_backfaces=False)
 
 
-def test_occlusion_culling_preserves_output(monkeypatch):
-    """Occlusion skip must be exactly output-preserving vs the oracle.
-    Forces KANI_OCC=1 scope (default is "shadow") with a unique config so
-    the main-raster executable traces under the patch."""
-    monkeypatch.setattr(raster_pallas, "OCC_MODE", "1")
-    monkeypatch.setattr(raster_pallas, "OCC", True)
-    cfg = kani.RenderConfig(width=256, height=160)
+def test_occlusion_culling_preserves_output():
+    """Fully occluded layers: depth matches the oracle everywhere, in the
+    main and the depth-only raster."""
+    cfg = _cfg(width=256, height=160)
     st = _two_layer_setup(height=160)
-    assert st.zmin is not None
-    assert raster_pallas._occ_on(cfg.tiles_x * cfg.tiles_y, cfg.tile_h,
-                                 st.zmin)
     vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
-    vp = raster_pallas.rasterize(st, cfg)
-    # Constant-z layers make shared-edge ties common; compare depth (the
-    # occlusion-relevant quantity) everywhere and ids off shared edges.
+    vp = raster_tiles.rasterize(st, cfg)
     np.testing.assert_allclose(np.asarray(vx.z), np.asarray(vp.z),
                                atol=1e-6)
     same = np.asarray(vx.tri) == np.asarray(vp.tri)
     assert (~same).mean() < 0.02, (~same).mean()
-    # Depth-only (shadow-style) raster too.
     cfg_d = cfg.with_(shadow_dim=256, shadow_tile_h=16)
-    zd = raster_pallas.rasterize_depth(st, cfg_d)
+    zd = raster_tiles.rasterize_depth(st, cfg_d)
     zx = raster_xla.rasterize_depth_xla(st.setup, cfg_d.shadow_dim)
     np.testing.assert_allclose(np.asarray(zd)[:128], np.asarray(zx)[:128],
                                atol=1e-6)
 
 
-def test_stream_occ_payload_and_order():
-    """bin_stream with zmin: per-tile runs are front-to-back and the
-    lane-2 payload carries a valid conservative bound + strip range."""
-    cfg = kani.RenderConfig(width=256, height=128)
-    st = _two_layer_setup()
-    C = st.setup.shape[0] // CHUNK_SIZE
-    bins = binning.bin_stream(st.bbox, cfg.tiles_x, cfg.tiles_y,
-                              cfg.tile_w, cfg.tile_h,
-                              cfg.max_tiles_per_chunk,
-                              cfg.max_chunks_per_tile,
-                              cfg.max_global_chunks,
-                              clipfree=st.clipfree, zmin=st.zmin)
-    hdr = np.asarray(bins.header)
-    stream = np.asarray(bins.stream)
-    cpad = binning.stream_cpad_for(C)
-    zmin = np.asarray(st.zmin)
-    bbox = np.asarray(st.bbox)
-    czmin = zmin.reshape(C, CHUNK_SIZE).min(1)
-    cy0 = bbox[:, 1].reshape(C, CHUNK_SIZE).min(1)
-    cy1 = bbox[:, 3].reshape(C, CHUNK_SIZE).max(1)
-    srows = binning.occ_strip_rows(cfg.tile_h)
-    nstrips = binning.occ_nstrips(cfg.tile_h)
-    flat_e = stream[:, 0].reshape(-1)
-    flat_p = stream[:, 2].reshape(-1)
-    checked_runs = 0
-    for t in range(cfg.tiles_x * cfg.tiles_y):
-        off = hdr[0, t] * 128 + hdr[1, t]
-        prev_q = None
-        for s in range(hdr[2, t]):
-            e = flat_e[off + s]
-            p = flat_p[off + s]
-            cid0 = (e // 32) % cpad
-            ln = e % 16
-            assert (e // 32) // cpad == t
-            q = p // 256
-            s0, s1 = (p // 16) % 16, p % 16
-            assert 0 <= s0 <= s1 < nstrips
-            zbound = 1.0 - q * 2.0 ** -binning.OCC_QBITS
-            members = range(cid0, cid0 + ln)
-            assert zbound <= czmin[list(members)].min() + 1e-6
-            # strip range covers the members' rows inside this tile
-            ty0 = (t // cfg.tiles_x) * cfg.tile_h
-            lo = max(min(cy0[c] for c in members) - ty0, 0)
-            hi = min(max(cy1[c] for c in members) - 1 - ty0,
-                     cfg.tile_h - 1)
-            if lo <= hi:
-                assert s0 <= lo // srows and s1 >= hi // srows
-            # front-to-back: coarse z rank non-decreasing
-            zrank = min((2 ** binning.OCC_QBITS - q)
-                        >> binning.OCC_SORT_SHIFT, 8191)
-            if prev_q is not None:
-                assert zrank >= prev_q
-            prev_q = zrank
-            checked_runs += 1
-    assert checked_runs > 20  # the scene must actually exercise this
+def test_layered_winners_and_record_gather_match_oracle():
+    """Equal-depth ties on the shared edges of constant-z grids resolve
+    to the lowest triangle id, as in the oracle; the record gather then
+    hands every pixel its winner's varyings."""
+    from kanirenderer_tpu.ops.interpolate import interpolate
 
-
-def test_fused_kernel_occlusion_forced_on_matches_oracle(monkeypatch):
-    """The FUSED (production) kernel with occlusion forced on both grids:
-    issue-time skips + phase-2 winner resolution must still match the
-    oracle (the hardware twin of this test is
-    tests/artifacts/onchip_parity_r4.json)."""
-    monkeypatch.setattr(raster_pallas, "OCC_MODE", "1")
-    monkeypatch.setattr(raster_pallas, "OCC", True)
-    from kanirenderer_tpu.ops.interpolate import build_tri_records
-
-    cfg = kani.RenderConfig(width=256, height=224)  # unique: trace under patch
+    cfg = _cfg(width=256, height=224, tile_h=16, tile_w=64)
     st = _two_layer_setup(height=224)
-    assert raster_pallas._occ_on(cfg.tiles_x * cfg.tiles_y, cfg.tile_h,
-                                 st.zmin)
     T = st.setup.shape[0]
+    vp = raster_tiles.rasterize(st, cfg)
+    vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
+    np.testing.assert_array_equal(np.asarray(vp.tri), np.asarray(vx.tri))
     vary = jnp.asarray(
         np.linspace(0, 1, T * 24, dtype=np.float32).reshape(T, 24))
-    # tri_idx only feeds varying gathers here; self-indexed rows keep the
-    # varyings distinct per triangle so phase-2 LUT errors are visible.
     tri_idx = jnp.tile(jnp.arange(T, dtype=jnp.int32)[:, None], (1, 3))
-    rec = build_tri_records(tri_idx, jnp.zeros(T, jnp.int32), vary,
-                            jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32),
-                            jnp.ones((1, 2), jnp.int32), setup=st.setup)
-    pix = raster_pallas.rasterize_pixels(st, rec, cfg)
-    vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
-    # Depth must match everywhere (occlusion-relevant quantity).
-    np.testing.assert_allclose(np.asarray(pix.z), np.asarray(vx.z),
-                               atol=1e-6)
-    # Everywhere coverage agrees, phase-2's interpolated varying lane 0
-    # must equal the oracle winner's record value (constant per triangle
-    # here, so ties on shared edges of the constant-z grids are the only
-    # allowed mismatches — bounded below).
-    both = np.asarray(pix.mask) & (np.asarray(vx.tri) >= 0)
-    v0 = np.asarray(pix.varyings)[0]
+    pix = interpolate(vp, tri_idx, jnp.zeros(T, jnp.int32), vary,
+                      jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32),
+                      jnp.ones((1, 2), jnp.int32))
     w = np.asarray(vx.tri)
-    vary_np = np.asarray(vary)
-    exp0 = vary_np[np.clip(w, 0, T - 1), 0]
-    winner_same = both & (np.abs(v0 - exp0) < 1e-4)
-    assert winner_same.sum() > 0.95 * both.sum()
+    cov = w >= 0
+    np.testing.assert_allclose(np.asarray(pix.varyings)[0][cov],
+                               np.asarray(vary)[w[cov], 0], atol=1e-6)
+
+
+def test_interpret_mode_is_never_implicit():
+    """Without ``config.interpret`` the kernel is a Triton GPU kernel: it
+    lowers to a Triton call for CUDA, and on this CPU it is refused rather
+    than silently interpreted."""
+    scene = cube_scene()
+    cfg = kani.RenderConfig(width=128, height=64, shadow_dim=128,
+                            raster_backend="tile", tile_h=16, tile_w=32)
+    assert not cfg.interpret
+    st = _setup_for(scene, OUTSIDE_CAM, cfg)
+    for fn in (lambda s: raster_tiles.rasterize(s, cfg),
+               lambda s: raster_tiles.rasterize(s, cfg, wireframe=True),
+               lambda s: raster_tiles.rasterize_depth(s, cfg)):
+        txt = jax.jit(fn).trace(st).lower(
+            lowering_platforms=("cuda",)).as_text()
+        assert "__gpu$xla.gpu.triton" in txt
+    with pytest.raises(Exception):
+        jax.block_until_ready(raster_tiles.rasterize(st, cfg))
+
+
+def test_tile_sides_must_be_powers_of_two():
+    scene = cube_scene()
+    cfg = _cfg(width=96, height=64, tile_h=8, tile_w=48)
+    st = _setup_for(scene, OUTSIDE_CAM, cfg)
+    with pytest.raises(ValueError, match="powers of two"):
+        raster_tiles.rasterize(st, cfg)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_oracle(gpu):
+    """The Triton-compiled kernel (no interpreter) against the oracle."""
+    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
+                                 tex_size=32)
+    cfg = kani.RenderConfig(width=384, height=192, shadow_dim=256,
+                            raster_backend="tile", tile_h=16, tile_w=32)
+    with jax.default_device(gpu):
+        st = _setup_for(scene, COURTYARD_CAM, cfg)
+        vx = raster_xla.rasterize_xla(st.setup, cfg.width, cfg.height)
+        vp = raster_tiles.rasterize(st, cfg)
+        _assert_parity(vx, vp)
+        np.testing.assert_allclose(
+            np.asarray(raster_tiles.rasterize_depth(st, cfg))[:192],
+            np.asarray(raster_xla.rasterize_depth_xla(st.setup, 256))[:192],
+            atol=1e-6)

@@ -217,12 +217,13 @@ def test_output_u8_hdr_is_float16():
 def test_fresh_shadow_geom_cache_matches_inframe():
     """render_shadow_geometry's cached light-space setup/bins must give the
     SAME frame as the in-frame fresh-shadow path (it is the same geometry,
-    computed once instead of per frame — bench.py --fresh uses it)."""
+    computed once instead of per frame)."""
     import jax
     from kanirenderer_tpu.passes.frame import render_shadow_geometry
     cfg = kani.RenderConfig(width=128, height=96,
                             mode=kani.RenderMode.LIT_SHADOW,
-                            shadow_dim=256, raster_backend="pallas")
+                            shadow_dim=256, raster_backend="tile",
+                            interpret=True)
     state = kani.frame_state(SCENE, OUTSIDE_CAM, LIGHTS)
     geom = jax.tree.map(lambda a: jax.device_put(np.asarray(a)),
                         render_shadow_geometry(SCENE, state, cfg))
@@ -259,3 +260,17 @@ def test_present_scale_downsamples_surface_only():
     ref = full.astype(np.float32).reshape(48, 2, 64, 2, 3).mean((1, 3))
     # u8 quantization commutes within rounding of the box average
     assert np.abs(ref - half.astype(np.float32)).max() <= 1.0
+
+
+def test_layered_scene_renders_content():
+    """The layered scene is actually on screen at the default camera
+    (it sizes walls to the frustum at each depth): most pixels covered."""
+    from kanirenderer_tpu.models.procedural import layered_scene
+
+    scene = layered_scene(target_tris=4_000)
+    st = kani.frame_state(scene, kani.default_camera(), LIGHTS)
+    cfg = kani.RenderConfig(width=256, height=128, shadow_dim=64,
+                            mode=kani.RenderMode.LIT)
+    out = render_frame(scene, st, cfg)
+    covered = (np.asarray(out.depth) < 1.0).mean()
+    assert covered > 0.95, covered

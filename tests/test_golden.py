@@ -75,7 +75,7 @@ def test_golden(name, kw):
 
 def test_golden_lit_shadow_512():
     """LIT_SHADOW at 512² with a 512² shadow map — large enough that PCF
-    penumbra edges span real pixel runs (VERDICT r1 #8)."""
+    penumbra edges span real pixel runs."""
     img = _render(dict(mode=kani.RenderMode.LIT_SHADOW), width=512,
                   height=512, shadow_dim=512)
     _check_golden(img, "cube512_lit_shadow")

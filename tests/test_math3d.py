@@ -126,3 +126,43 @@ def test_transform_points_h_batch():
     expect = (np.concatenate([pts, np.ones((17, 1), np.float32)], 1) @ m.T)
     # rtol covers accumulation-order drift across XLA flag environments
     np.testing.assert_allclose(got, expect, rtol=3e-5, atol=1e-5)
+
+
+def _dots_highest(fn, *args):
+    """Every dot in ``fn``'s lowering asks for full f32 precision (a GPU
+    would otherwise be free to run it in TF32)."""
+    import jax
+    txt = jax.jit(fn).lower(*args).as_text()
+    dots = [ln for ln in txt.splitlines() if "dot_general" in ln]
+    assert dots
+    return all("HIGHEST" in ln for ln in dots)
+
+
+def test_rotate_direction_matches_f64():
+    rng = np.random.RandomState(4)
+    for _ in range(5):
+        d = rng.randn(3).astype(np.float32)
+        ax, ay, az = rng.uniform(-180, 180, 3)
+        got = np.asarray(m3.rotate_direction_zyx(d, ax, ay, az))
+        rx, ry, rz = np.deg2rad([ax, ay, az])
+        cx, sx, cy, sy, cz, sz = (np.cos(rx), np.sin(rx), np.cos(ry),
+                                  np.sin(ry), np.cos(rz), np.sin(rz))
+        Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+        want = Rz @ Ry @ Rx @ d.astype(np.float64)
+        np.testing.assert_allclose(got, want, atol=2e-6 * np.abs(d).max())
+    assert _dots_highest(m3.rotate_direction_zyx,
+                         jnp.ones(3, jnp.float32), 10.0, 20.0, 30.0)
+
+
+def test_transform_vectors_matches_f64():
+    rng = np.random.RandomState(5)
+    mat = rng.randn(3, 3).astype(np.float32)
+    v = (rng.randn(64, 3) * 100).astype(np.float32)
+    got = np.asarray(m3.transform_vectors(jnp.asarray(mat),
+                                              jnp.asarray(v)))
+    want = v.astype(np.float64) @ mat.astype(np.float64).T
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    assert _dots_highest(m3.transform_vectors, jnp.asarray(mat),
+                         jnp.asarray(v))

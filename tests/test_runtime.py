@@ -113,11 +113,9 @@ def test_loop_present_mode_cycle_and_picking():
 
 
 def test_loop_shadow_table_cache_steady_state():
-    """The loop's host-managed PCF-table cache (cache_shadow_map=True):
-    frame 0 renders shadow-less (all-lit placeholder table, the safe
-    first-executable ordering), and from frame 1 on — once the sun has
-    been stable for two frames — the loop renders with the real cached
-    table, matching a fresh-shadow render_frame exactly."""
+    """The loop's PCF-table cache (cache_shadow_map=True): the table is
+    rendered on the first frame and reused while the sun holds still, and
+    every frame matches a fresh-shadow render_frame exactly."""
     from kanirenderer_tpu.passes.frame import render_frame
 
     captured = []
@@ -142,11 +140,8 @@ def test_loop_shadow_table_cache_steady_state():
     ref = render_frame(SCENE, state, cfg.with_(cache_shadow_map=False))
     from kanirenderer_tpu.runtime.display import to_uint8
     ref8 = np.asarray(to_uint8(ref.image))
-    np.testing.assert_array_equal(captured[1], ref8)
-    np.testing.assert_array_equal(captured[2], ref8)
-    # frame 0 rendered with the all-lit placeholder table (never darker
-    # than the shadowed reference; equal when nothing is occluded)
-    assert (captured[0].astype(int) >= ref8.astype(int) - 1).all()
+    for img in captured:
+        np.testing.assert_array_equal(img, ref8)
 
 
 def test_frametime_graph_ring():
@@ -243,7 +238,7 @@ def test_profile_trace_written(tmp_path):
 def test_render_frame_view_wh_matches_exact_size():
     """Resize-without-recompile framing: rendering into a padded target
     with the view size traced (view_wh) then cropping equals rendering at
-    the exact size (VERDICT r3 item 7)."""
+    the exact size."""
     from kanirenderer_tpu.passes.frame import render_frame
 
     state = kani.frame_state(SCENE, kani.default_camera(),
@@ -299,32 +294,9 @@ def test_loop_resize_bucketing_reuses_executables():
         assert frame_mod.render_frame._cache_size() - base <= 2
 
 
-def test_loop_self_heals_after_frame_failure(monkeypatch):
-    """Device-loss recovery (reference SurfaceError::Lost -> resize,
-    src/lib.rs:2153-2157): an injected frame failure triggers a device
-    state rebuild and the loop continues."""
-    from kanirenderer_tpu.runtime import loop as loop_mod
-
-    real = loop_mod.render_frame
-    calls = {"n": 0}
-
-    def flaky(*a, **k):
-        calls["n"] += 1
-        if calls["n"] == 2:
-            raise RuntimeError("INVALID_ARGUMENT: injected device loss")
-        return real(*a, **k)
-
-    monkeypatch.setattr(loop_mod, "render_frame", flaky)
-    cfg = kani.RenderConfig(width=48, height=32, shadow_dim=64,
-                            mode=kani.RenderMode.LIT)
-    stats = run_loop(SCENE, [Events()] * 4, config=cfg, sink_kind="null")
-    assert stats["healed"] == 1
-    assert stats["frames"] == 3  # the failed frame is dropped, not fatal
-
-
 def test_loop_gives_up_after_persistent_failure(monkeypatch):
-    """The OutOfMemory -> exit analog (src/lib.rs:2156): persistent
-    failures re-raise instead of looping forever."""
+    """The OutOfMemory -> exit analog (src/lib.rs:2156): a failing frame
+    re-raises instead of looping forever."""
     import pytest
     from kanirenderer_tpu.runtime import loop as loop_mod
 
@@ -340,8 +312,8 @@ def test_loop_gives_up_after_persistent_failure(monkeypatch):
 
 def test_host_controller_twins_match_jitted():
     """The pure-numpy *_host controller twins (used by the interactive
-    loop — a jax dispatch costs 10-80 ms/frame on remote runtimes) must
-    match the jitted versions bit-for-bit-ish in f32."""
+    loop, which dispatches nothing to the device for them) must match the
+    jitted versions bit-for-bit-ish in f32."""
     rng = np.random.RandomState(3)
     for _ in range(20):
         cam = kani.CameraState(
